@@ -1,0 +1,358 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (stereovision_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure ends the run with a traceback and a non-zero
+exit code (nothing is caught):
+
+  1. the card: `nvidia-smi` name and power limit, torch's device name;
+  2. build: the native host helpers (g++) and the four CUDA kernels (nvcc,
+     sm_90a, one process per source, in parallel), timed;
+  3. a seeded synthetic KITTI-size (1242x375) stereo pair with its true
+     disparity (stereovision_tpu_torch/synthetic.py);
+  4. every kernel against its plain PyTorch version on the card, on the
+     inputs one frame of the main path gives it: exact equality required,
+     times by CUDA events (median of 10 calls) of the kernel's launch
+     alone, of its wrapper (layout step included) and of the plain version;
+  5. the main path: StereoEngine(params=app_params()).process_frame over 8
+     frames after one warm-up, with the kernels' launch counters set to 0
+     just before and read just after; frame 0 is checked against the same
+     port on the CPU (D1, dmap and points bit for bit) and every frame for
+     sanity (shapes, >= 80 % of D1 valid, median |D1 - truth| <= 1); then
+     a per-stage breakdown (stage A, host middle, stage B, reproject) and
+     two frames under torch.profiler (device busy time and idle share,
+     device time by kernel);
+  6. one JSON line per kernel result, one `{"kernels": [...]}` line, the
+     card line, and last `{"ok": true, "device": {...}}`.
+
+It exits non-zero, printing no result, when CUDA is not available or the
+package is not beside it.  Every time printed names the card and its power
+limit.
+"""
+
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+W, H = 1242, 375
+FRAMES = 8
+REPS = 10
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
+OPS_PER_S = 67e12             # H100 SXM 32-bit rate outside tensor cores
+CSRC = "stereovision_tpu_torch/csrc/"
+PALLAS = "stereovision_tpu/ops/pallas/"
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def event_ms(fn, reps=REPS) -> float:
+    """Median milliseconds of one call of fn, by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def bound_ms(nbytes: float, ops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compare(kernel_out, plain_out):
+    """(mismatching elements, max |kernel - plain|) over tensors/tuples."""
+    if torch.is_tensor(kernel_out):
+        kernel_out, plain_out = (kernel_out,), (plain_out,)
+    bad, err = 0, 0.0
+    for k, p in zip(kernel_out, plain_out):
+        assert k.shape == p.shape and k.dtype == p.dtype, (k.shape, p.shape)
+        bad += int((k != p).sum())
+        err = max(err, float((k.double() - p.double()).abs().max()))
+    return bad, err
+
+
+def profile_frames(eng, scenes) -> dict:
+    """Device time of a few process_frame calls under torch.profiler: the
+    union of the device's busy intervals against the host's wall time, and
+    device milliseconds by kernel name (the ten largest)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for lf, rf, _ in scenes:
+            eng.process_frame(lf, rf)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t)
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return {"frames": len(scenes), "device_busy": "not measured"}
+    busy, end, by_name = 0.0, float("-inf"), {}
+    for s, e, name in spans:
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+        # "void at::native::foo<...>(...)" -> "at::native::foo"
+        short = re.split(r"[<(]", name.replace("(anonymous namespace)::", "")
+                         .removeprefix("void "))[0].strip()[:60]
+        by_name[short] = by_name.get(short, 0.0) + (e - s) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    return {"frames": len(scenes), "wall_ms": wall_us / 1e3,
+            "device_busy_ms": busy / 1e3, "device_idle_share":
+                1 - busy / wall_us, "device_ms_by_kernel": dict(top)}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from stereovision_tpu_torch.engine import StereoEngine, bgr_to_gray
+    from stereovision_tpu_torch.hostlib import raster
+    from stereovision_tpu_torch.ops import matching, postprocess, support
+    from stereovision_tpu_torch.ops.cuda import (_lib, ccl_cu, lr_cu,
+                                                 matching_cu, support_cu)
+    from stereovision_tpu_torch.params import app_params
+    from stereovision_tpu_torch.synthetic import stereo_pair
+
+    # 1. the card
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print("card:", card, "| torch:", kind, "| torch", torch.__version__,
+          "cuda", torch.version.cuda, flush=True)
+
+    # 2. build
+    t0 = time.perf_counter()
+    host = raster.get_lib()
+    t1 = time.perf_counter()
+    kernels = _lib.kernels()
+    t2 = time.perf_counter()
+    assert host is not None and kernels is not None
+    print(json.dumps({"build": {"host_lib_s": t1 - t0, "cuda_kernels_s":
+                                t2 - t1, "host_lib": host._name,
+                                "kernels": kernels._name}}), flush=True)
+
+    # 3. scene
+    p = app_params()
+    calib = os.path.join(REPO, "stereovision_tpu_torch", "data",
+                         "kitti_2011_09_26.yml")
+    eng = StereoEngine(calib, W, H, params=p)
+    elas = eng.elas
+    left, right, _ = stereo_pair(W, H, seed=0)
+
+    # 4. kernels against their plain versions on one frame's real inputs
+    desc1, desc2, d_can = elas.stage_support(bgr_to_gray(left),
+                                             bgr_to_gray(right))
+    geo = elas.geometry_to_device(elas.host_mid(d_can.cpu().numpy()))
+    (tid_l, pl_l, gm_l), (tid_r, pl_r, gm_r) = elas.dense_inputs(*geo)
+    maps_l = matching.plane_maps(tid_l, pl_l, p)
+    maps_r = matching.plane_maps(tid_r, pl_r, p)
+    D1 = matching_cu.compute_disparity(desc1, desc2, tid_l, pl_l, gm_l, p,
+                                       right_image=False)
+    D2 = matching_cu.compute_disparity(desc2, desc1, tid_r, pl_r, gm_r, p,
+                                       right_image=True)
+    L1, _ = lr_cu.lr_consistency_check(D1, D2, p)
+    torch.cuda.synchronize()
+
+    def support_ops():
+        """Least operations of the support scan.  Both directions read one
+        table F(x, d) = SAD32(A(x), B(x - d)): forward Fg(u) = F(u-2) +
+        F(u+2) and backward Fg(u+d).  So each (row, x, d) that either
+        direction reads costs one SAD32 (32 abs-diffs, 32 adds), each Fg
+        entry one add, and each valid (u, d) of a direction one compare."""
+        u = np.arange(W)
+        per_row = 0
+        for d in range(max(p.disp_min, 0), p.disp_max + 1):
+            fwd = u[u >= d + 5]
+            bwd = u[u <= W - d - 5] + d
+            fg = np.union1d(fwd, bwd)
+            f = np.union1d(fg - 2, fg + 2)
+            per_row += 64 * f.size + fg.size + fwd.size + bwd.size
+        return Hc * per_row
+
+    Hc = -(-H // p.step)
+
+    def n_candidates(maps, gm, right_image):
+        lo, hi = maps[0], maps[1]
+        gy = torch.arange(H, device=lo.device) // p.grid_size
+        gx = torch.arange(W, device=lo.device) // p.grid_size
+        uu = torch.arange(W, device=lo.device)[None, :]
+        n = 0
+        for d in range(p.disp_num):
+            uw = uu + d if right_image else uu - d
+            cand = ((gm[d][gy][:, gx] | ((d >= lo) & (d <= hi)))
+                    & (uw >= 2) & (uw <= W - 3))
+            n += int(cand.sum())
+        return n
+
+    # the kernels' own inputs, laid out by their wrappers: "ms" times the
+    # launch alone, "wrapper_ms" the wrapper with its layout step
+    sup_in = (support_cu.layout(desc1, p), support_cu.layout(desc2, p))
+    mat_l = matching_cu.layout(desc1, desc2, gm_l, p)
+    mat_r = matching_cu.layout(desc2, desc1, gm_r, p)
+    n_words = -(-p.disp_num // 32)
+    match_bytes = (2 * H * W * 16 + gm_l.shape[1] * gm_l.shape[2] * n_words
+                   * 4 + 4 * H * W * 4 + p.disp_num * 4 + H * W * 4)
+    checks = {
+        "support": dict(
+            kernel=lambda: support_cu.support_scan(desc1, desc2, p),
+            launch=lambda: support_cu.launch(*sup_in, p),
+            plain=lambda: support.support_scan(desc1, desc2, p),
+            nbytes=2 * Hc * W * 32 + 8 * Hc * W * 4, ops=support_ops(),
+            source=CSRC + "support.cu", replaces=PALLAS + "support_pl.py:50"),
+        "matching_left": dict(
+            kernel=lambda: matching_cu.match_keys(desc1, desc2, *maps_l,
+                                                  gm_l, p, False),
+            launch=lambda: matching_cu.launch(*mat_l[:3], *maps_l, mat_l[3],
+                                              p, False),
+            plain=lambda: matching.match_keys(desc1, desc2, *maps_l, gm_l,
+                                              p, False),
+            nbytes=match_bytes, ops=n_candidates(maps_l, gm_l, False) * 32),
+        "matching_right": dict(
+            kernel=lambda: matching_cu.match_keys(desc2, desc1, *maps_r,
+                                                  gm_r, p, True),
+            launch=lambda: matching_cu.launch(*mat_r[:3], *maps_r, mat_r[3],
+                                              p, True),
+            plain=lambda: matching.match_keys(desc2, desc1, *maps_r, gm_r,
+                                              p, True),
+            nbytes=match_bytes, ops=n_candidates(maps_r, gm_r, True) * 32),
+        "lr_check": dict(
+            kernel=lambda: lr_cu.lr_consistency_check(D1, D2, p),
+            plain=lambda: postprocess.lr_consistency_check(D1, D2, p),
+            nbytes=4 * H * W * 4, ops=2 * H * W * 8,
+            source=CSRC + "lr.cu", replaces=PALLAS + "lr_pl.py:36"),
+        "speckle_ccl": dict(
+            kernel=lambda: ccl_cu.remove_small_segments(L1, p),
+            plain=lambda: postprocess.remove_small_segments(L1, p),
+            nbytes=2 * H * W * 4, ops=H * W * 16,
+            source=CSRC + "ccl.cu", replaces=PALLAS + "ccl_pl.py:82"),
+    }
+    results = {}
+    for name, c in checks.items():
+        k_out = c["kernel"]()
+        torch.cuda.synchronize()
+        p_out = c["plain"]()
+        bad, err = compare(k_out, p_out)
+        r = dict(name=name, mismatches=bad, max_abs_err=err,
+                 ms=event_ms(c.get("launch", c["kernel"])),
+                 wrapper_ms=event_ms(c["kernel"]),
+                 plain_ms=event_ms(c["plain"]), bytes=c["nbytes"],
+                 ops=c["ops"], card=card)
+        r["bound_ms"], r["bound_by"] = bound_ms(c["nbytes"], c["ops"])
+        results[name] = r
+        print(json.dumps(r), flush=True)
+        assert bad == 0, "%s: kernel and plain version differ" % name
+
+    # 5. the main path, through the entry point a user calls
+    scenes = [stereo_pair(W, H, seed=s) for s in range(1, FRAMES + 2)]
+    eng.process_frame(scenes[0][0], scenes[0][1])
+    torch.cuda.synchronize()
+    wrappers = {"matching": matching_cu, "support": support_cu,
+                "lr_check": lr_cu, "speckle_ccl": ccl_cu}
+    for m in wrappers.values():
+        m.launches = 0
+    outs, frame_s = [], []
+    for lf, rf, _ in scenes[1:]:
+        t = time.perf_counter()
+        outs.append(eng.process_frame(lf, rf))
+        frame_s.append(time.perf_counter() - t)
+    launches = {k: m.launches for k, m in wrappers.items()}
+    print(json.dumps({"main_path": {
+        "frames": FRAMES, "frame_ms": [1e3 * s for s in frame_s],
+        "frame_ms_median": 1e3 * float(np.median(frame_s)),
+        "launches": launches, "card": card}}), flush=True)
+    assert launches["matching"] == 2 * FRAMES, launches
+    assert launches["support"] == FRAMES, launches
+    assert launches["lr_check"] == FRAMES, launches
+    assert launches["speckle_ccl"] >= FRAMES, launches
+
+    for (lf, rf, truth), out in zip(scenes[1:], outs):
+        D = out["disparity"].cpu().numpy()
+        assert out["dmap"].shape == (H, W) and out["dmap"].dtype == np.uint8
+        assert out["points"].shape == (H * W, 3)
+        shown = out["dmap"].reshape(-1) > 0
+        assert np.isfinite(out["points"][shown]).all()
+        valid = D >= 0
+        err = float(np.median(np.abs(D[valid] - truth[valid])))
+        assert valid.mean() >= 0.8 and err <= 1, (valid.mean(), err)
+    ref = StereoEngine(calib, W, H, params=p, device="cpu").process_frame(
+        scenes[1][0], scenes[1][1])
+    assert torch.equal(outs[0]["disparity"].cpu(), ref["disparity"])
+    assert np.array_equal(outs[0]["dmap"], ref["dmap"])
+    np.testing.assert_array_equal(outs[0]["points"], ref["points"])
+    print(json.dumps({"cpu_reference": "D1, dmap and points of frame 0 "
+                      "equal bit for bit", "valid_frac_min": min(
+                          float((o["disparity"] >= 0).float().mean())
+                          for o in outs)}), flush=True)
+
+    stages = {"stage_a": [], "host_middle": [], "stage_b": [],
+              "reproject": []}
+    for lf, rf, _ in scenes[1:4]:
+        t0 = time.perf_counter()
+        d1, d2, dc = elas.stage_support(bgr_to_gray(lf), bgr_to_gray(rf))
+        dc = dc.cpu().numpy()
+        t1 = time.perf_counter()
+        g = elas.host_mid(dc)
+        t2 = time.perf_counter()
+        D, _ = elas.stage_dense(d1, d2, *elas.geometry_to_device(g))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        dmap, pts = eng.reproject(D)
+        dmap.cpu(), pts.cpu()
+        t4 = time.perf_counter()
+        for k, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            stages[k].append(1e3 * dt)
+    print(json.dumps({"stage_ms_median": {k: float(np.median(v))
+                                          for k, v in stages.items()},
+                      "card": card}), flush=True)
+    print(json.dumps({"profile": profile_frames(eng, scenes[1:3]),
+                      "card": card}), flush=True)
+
+    # 6. summary lines
+    rows = []
+    for name in ("matching", "support", "lr_check", "speckle_ccl"):
+        if name == "matching":
+            a, b = results["matching_left"], results["matching_right"]
+            r = {k: (a[k] + b[k]) / 2 for k in ("ms", "plain_ms", "bound_ms")}
+            r.update(max_abs_err=max(a["max_abs_err"], b["max_abs_err"]),
+                     bound_by=a["bound_by"], source=CSRC + "matching.cu",
+                     replaces=PALLAS + "matching_pl.py:60")
+        else:
+            r = dict(results[name], source=checks[name]["source"],
+                     replaces=checks[name]["replaces"])
+        rows.append({"name": name, "route": "cuda", "source": r["source"],
+                     "replaces": r["replaces"], "launches": launches[name],
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"], "library_ms": None})
+    print(json.dumps({"kernels": rows}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

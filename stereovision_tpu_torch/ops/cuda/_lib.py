@@ -1,0 +1,104 @@
+"""Build and bind the CUDA kernels (csrc/*.cu) for the wrappers in this
+package.
+
+The four sources are compiled in parallel with nvcc for sm_90a and linked
+into one shared library with a plain C interface, loaded with ctypes; every
+C entry point launches on the stream it is given and returns the CUDA error
+code of the launch.  --fmad=false keeps float code meaning exactly what the
+source says (no contraction into fused multiply-adds).  Nothing here runs at
+import: the library is built at the first kernel launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import shutil
+
+import torch
+
+from ...native import CSRC_DIR, build_library
+
+SOURCES = ("support.cu", "matching.cu", "lr.cu", "ccl.cu")
+HEADERS = ("svtt_cuda.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "--fmad=false", "-std=c++17", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # name: argtypes (every function returns the launch's cudaError_t)
+    "svtt_support_scan": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "svtt_match_keys": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _P, _P],
+    "svtt_lr_check": [_P, _P, _I, _I, _F, _P, _P, _P],
+    "svtt_speckle": [_P, _I, _I, _F, _I, _P, _P, _P, _P],
+}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    path = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (looked on PATH and in CUDA_HOME "
+                           "or /usr/local/cuda): the CUDA kernels cannot be "
+                           "built")
+    return path
+
+
+def _commands(nvcc: str):
+    def stages(tmp: str):
+        objs = [os.path.join(tmp, s + ".o") for s in SOURCES]
+        compile_all = [[nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC_DIR, s),
+                        "-o", o] for s, o in zip(SOURCES, objs)]
+        link = [[nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+                 *objs, "-o", "out.so"]]
+        return [compile_all, link]
+    return stages
+
+
+@functools.cache
+def kernels() -> ctypes.CDLL:
+    """The kernel library, built on first use."""
+    nvcc = nvcc_path()
+    paths = [os.path.join(CSRC_DIR, s) for s in SOURCES + HEADERS]
+    lib = ctypes.CDLL(build_library("svtt_kernels", paths, NVCC_FLAGS,
+                                    _commands(nvcc)))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def expect(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
+    """Raise unless t is a contiguous CUDA tensor of this dtype and shape,
+    16-byte aligned (the kernels load 16-byte vectors)."""
+    if t.device.type != "cuda":
+        raise ValueError("%s must be a CUDA tensor, got %s" % (name, t.device))
+    if t.dtype != dtype:
+        raise ValueError("%s must be %s, got %s" % (name, dtype, t.dtype))
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError("%s must have shape %s, got %s"
+                         % (name, tuple(shape), tuple(t.shape)))
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError("%s must be contiguous and 16-byte aligned" % name)
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError("%s: kernel launch failed with CUDA error %d"
+                           % (name, err))

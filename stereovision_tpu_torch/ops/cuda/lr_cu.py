@@ -1,0 +1,37 @@
+"""K4 wrapper: the L/R consistency check (csrc/lr.cu), counterpart of
+stereovision_tpu/ops/pallas/lr_pl.py.
+
+On CUDA tensors lr_consistency_check launches the kernel; on CPU tensors it
+runs the plain version ops.postprocess.lr_consistency_check.  `launches`
+counts kernel launches.  Full resolution only.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...params import ElasParams
+from .. import postprocess as plain
+from . import _lib
+
+launches = 0
+
+
+def lr_consistency_check(D1: torch.Tensor, D2: torch.Tensor, p: ElasParams):
+    """(H, W) float32 D1, D2 -> checked (D1, D2)."""
+    global launches
+    if D1.device.type == "cpu":
+        return plain.lr_consistency_check(D1, D2, p)
+    if p.subsampling:
+        raise NotImplementedError("the L/R kernel is full-resolution only")
+    H, W = D1.shape
+    _lib.expect(D1, "D1", torch.float32, (H, W))
+    _lib.expect(D2, "D2", torch.float32, (H, W))
+    O1 = torch.empty_like(D1)
+    O2 = torch.empty_like(D2)
+    err = _lib.kernels().svtt_lr_check(
+        _lib.ptr(D1), _lib.ptr(D2), H, W, float(p.lr_threshold),
+        _lib.ptr(O1), _lib.ptr(O2), _lib.stream())
+    _lib.check(err, "lr_consistency_check")
+    launches += 1
+    return O1, O2

@@ -1,0 +1,96 @@
+"""K1 wrapper: dense matching keys (csrc/matching.cu), counterpart of
+stereovision_tpu/ops/pallas/matching_pl.py.
+
+On CUDA tensors match_keys lays its inputs out for the kernel (layout) and
+launches it (launch); on CPU tensors it runs the plain version
+ops.matching.match_keys.  `launches` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...params import ElasParams
+from .. import matching as plain
+from . import _lib
+
+launches = 0
+
+
+def cell_words(grid_mask: torch.Tensor) -> torch.Tensor:
+    """(D, gh, gw) bool -> (gh, gw, ceil(D/32)) int32 packed candidate
+    words: bit b of word w is disparity 32 w + b."""
+    D, gh, gw = grid_mask.shape
+    nwords = -(-D // 32)
+    m = torch.nn.functional.pad(grid_mask.to(torch.int64),
+                                (0, 0, 0, 0, 0, nwords * 32 - D))
+    weights = torch.bitwise_left_shift(
+        torch.ones(32, dtype=torch.int64, device=m.device),
+        torch.arange(32, device=m.device))
+    words = (m.reshape(nwords, 32, gh, gw) * weights[None, :, None, None]
+             ).sum(dim=1)
+    return words.permute(1, 2, 0).to(torch.int32).contiguous()
+
+
+def layout(desc_self: torch.Tensor, desc_other: torch.Tensor,
+           grid_mask: torch.Tensor, p: ElasParams):
+    """The kernel's inputs besides the plane maps: descriptors as (H, W, 16)
+    uint8 (one pixel's descriptor is one 16-byte load), the packed cell
+    words and the prior table on the descriptors' device."""
+    A = plain.line_rows(desc_self).permute(1, 2, 0).contiguous()
+    B = plain.line_rows(desc_other).permute(1, 2, 0).contiguous()
+    prior = torch.as_tensor(p.prior_table(), device=desc_self.device)
+    return A, B, cell_words(grid_mask), prior
+
+
+def launch(A: torch.Tensor, B: torch.Tensor, words: torch.Tensor,
+           d_lo: torch.Tensor, d_hi: torch.Tensor, d_plane: torch.Tensor,
+           pvalid: torch.Tensor, prior: torch.Tensor, p: ElasParams,
+           right_image: bool) -> torch.Tensor:
+    """Launch the kernel on layout()'s tensors and the plane maps; returns
+    the (H, W) int32 keys."""
+    global launches
+    H, W, _ = A.shape
+    gh, gw, nwords = words.shape
+    D = p.disp_num
+    _lib.expect(A, "A", torch.uint8, (H, W, 16))
+    _lib.expect(B, "B", torch.uint8, (H, W, 16))
+    _lib.expect(words, "cell_words", torch.int32, (gh, gw, -(-D // 32)))
+    for name, t in (("d_lo", d_lo), ("d_hi", d_hi), ("d_plane", d_plane),
+                    ("pvalid", pvalid)):
+        _lib.expect(t, name, torch.int32, (H, W))
+    _lib.expect(prior, "prior", torch.int32, (D,))
+    if gh * p.grid_size < H or gw * p.grid_size < W:
+        raise ValueError("cell words %s do not cover a %dx%d image"
+                         % (tuple(words.shape), H, W))
+    key = torch.empty((H, W), dtype=torch.int32, device=A.device)
+    err = _lib.kernels().svtt_match_keys(
+        _lib.ptr(A), _lib.ptr(B), _lib.ptr(words), _lib.ptr(d_lo),
+        _lib.ptr(d_hi), _lib.ptr(d_plane), _lib.ptr(pvalid), _lib.ptr(prior),
+        H, W, D, nwords, p.grid_size, gw, plain.prior_offset(p),
+        int(right_image), _lib.ptr(key), _lib.stream())
+    _lib.check(err, "match_keys")
+    launches += 1
+    return key
+
+
+def match_keys(desc_self: torch.Tensor, desc_other: torch.Tensor,
+               d_lo: torch.Tensor, d_hi: torch.Tensor, d_plane: torch.Tensor,
+               pvalid: torch.Tensor, grid_mask: torch.Tensor, p: ElasParams,
+               right_image: bool) -> torch.Tensor:
+    """Minimum matching key per pixel, (H, W) int32 (see ops.matching)."""
+    if desc_self.device.type == "cpu":
+        return plain.match_keys(desc_self, desc_other, d_lo, d_hi, d_plane,
+                                pvalid, grid_mask, p, right_image)
+    A, B, words, prior = layout(desc_self, desc_other, grid_mask, p)
+    return launch(A, B, words, d_lo, d_hi, d_plane, pvalid, prior, p,
+                  right_image)
+
+
+def compute_disparity(desc_self: torch.Tensor, desc_other: torch.Tensor,
+                      tri_id: torch.Tensor, planes: torch.Tensor,
+                      grid_mask: torch.Tensor, p: ElasParams,
+                      right_image: bool) -> torch.Tensor:
+    """ops.matching.compute_disparity through this wrapper's key scan."""
+    return plain.compute_disparity(desc_self, desc_other, tri_id, planes,
+                                   grid_mask, p, right_image, keys=match_keys)

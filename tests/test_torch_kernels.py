@@ -1,0 +1,95 @@
+"""The port's CUDA kernels held against their plain PyTorch versions.
+
+Every test here needs the card: it is marked `cuda` and skips without
+one.  The inputs are one frame of the port's own pipeline on the CPU (held
+against the JAX package by tests/test_torch_ops.py), moved to the card.
+The file imports nothing of JAX, so it also runs where only PyTorch is
+installed; tests/conftest.py imports jax, so leave it out there:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
+"""
+
+import pytest
+import torch
+
+from stereovision_tpu_torch.engine import bgr_to_gray
+from stereovision_tpu_torch.models.elas import ElasEngine
+from stereovision_tpu_torch.ops import matching, support
+from stereovision_tpu_torch.ops import postprocess as post
+from stereovision_tpu_torch.ops.cuda import (ccl_cu, lr_cu, matching_cu,
+                                             support_cu)
+from stereovision_tpu_torch.params import app_params, robotics_params
+from stereovision_tpu_torch.synthetic import stereo_pair
+
+PRESETS = {
+    "app": lambda: app_params().replace(disp_max=63),
+    "robotics": lambda: robotics_params(disp_max=63),
+}
+# a width that is not a multiple of the kernels' 128-thread blocks
+SIZES = [(160, 120), (333, 101)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _equal(kernel_out, plain_out):
+    assert kernel_out.dtype == plain_out.dtype
+    assert torch.equal(kernel_out.cpu(), plain_out.cpu()), \
+        "%d elements differ" % int((kernel_out != plain_out).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", SIZES)
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_kernels_match_plain_versions(cuda, preset, size):
+    """K2, K1 (both passes), K4 and K3 on one frame's real inputs: the
+    kernel's output equals the plain version's exactly."""
+    p = PRESETS[preset]()
+    w, h = size
+    eng = ElasEngine(p, w, h, device="cpu")
+    left, right, _ = stereo_pair(w, h, seed=3)
+    desc1, desc2, d_can = eng.stage_support(bgr_to_gray(left),
+                                            bgr_to_gray(right))
+    geo = eng.geometry_to_device(eng.host_mid(d_can.numpy()))
+    passes = eng.dense_inputs(*geo)
+    D = [matching.compute_disparity(a, b, *inputs, p, right_image=right)
+         for (a, b), inputs, right in zip(((desc1, desc2), (desc2, desc1)),
+                                          passes, (False, True))]
+
+    d1, d2 = desc1.to(cuda), desc2.to(cuda)
+    launched = support_cu.launches
+    _equal(support_cu.support_scan(d1, d2, p), support.support_scan(d1, d2, p))
+    assert support_cu.launches == launched + 1
+
+    for (a, b), (tid, planes, gm), right in zip(((d1, d2), (d2, d1)), passes,
+                                                (False, True)):
+        maps = matching.plane_maps(tid.to(cuda), planes.to(cuda), p)
+        gm = gm.to(cuda)
+        _equal(matching_cu.match_keys(a, b, *maps, gm, p, right),
+               matching.match_keys(a, b, *maps, gm, p, right))
+
+    D1, D2 = D[0].to(cuda), D[1].to(cuda)
+    for k, ref in zip(lr_cu.lr_consistency_check(D1, D2, p),
+                      post.lr_consistency_check(D1, D2, p)):
+        _equal(k, ref)
+    L1 = post.lr_consistency_check(D1, D2, p)[0]
+    _equal(ccl_cu.remove_small_segments(L1, p),
+           post.remove_small_segments(L1, p))
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    """The launch functions take only CUDA tensors: a CPU tensor handed
+    past the wrapper's device dispatch raises before any build or launch."""
+    p = app_params()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        matching_cu.launch(*(torch.zeros((4, 8, 16), dtype=torch.uint8),) * 2,
+                           torch.zeros((1, 1, 8), dtype=torch.int32),
+                           *(torch.zeros((4, 8), dtype=torch.int32),) * 4,
+                           torch.zeros(256, dtype=torch.int32), p, False)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        support_cu.launch(*(torch.zeros((2, 8, 32), dtype=torch.uint8),) * 2,
+                          p)
