@@ -11,20 +11,25 @@ exit code (nothing is caught):
      sm_90a, one process per source, in parallel), timed;
   3. a seeded synthetic KITTI-size (1242x375) stereo pair with its true
      disparity (stereovision_tpu_torch/synthetic.py);
+then, once at full resolution (app_params()) and once subsampled
+(app_params(subsampling=True): candidate step 6, stage B on the (187, 621)
+half lattice):
   4. every kernel against its plain PyTorch version on the card, on the
      inputs one frame of the main path gives it: exact equality required,
      times by CUDA events (median of 10 calls) of the kernel's launch
      alone, of its wrapper (layout step included) and of the plain version;
-  5. the main path: StereoEngine(params=app_params()).process_frame over 8
-     frames after one warm-up, with the kernels' launch counters set to 0
-     just before and read just after; frame 0 is checked against the same
-     port on the CPU (D1, dmap and points bit for bit) and every frame for
-     sanity (shapes, >= 80 % of D1 valid, median |D1 - truth| <= 1); then
-     a per-stage breakdown (stage A, host middle, stage B, reproject) and
-     two frames under torch.profiler (device busy time and idle share,
-     device time by kernel);
-  6. one JSON line per kernel result, one `{"kernels": [...]}` line, the
-     card line, and last `{"ok": true, "device": {...}}`.
+  5. the main path: StereoEngine.process_frame over 8 frames after one
+     warm-up, with the kernels' launch counters set to 0 just before and
+     read just after; frame 0 is checked against the same port on the CPU
+     (D1, dmap and points bit for bit) and every frame for sanity (shapes,
+     >= 80 % of D1 valid, median |D1 - truth| <= 1 on the output
+     lattice); then a per-stage breakdown (stage A, host middle, stage B,
+     reproject) and two frames under torch.profiler (device busy time and
+     idle share, device time by kernel);
+and last:
+  6. one JSON line per kernel result, one `{"kernels": [...]}` line with a
+     row per kernel and mode, the card line, and `{"ok": true, "device":
+     {...}}`.
 
 It exits non-zero, printing no result, when CUDA is not available or the
 package is not beside it.  Every time printed names the card and its power
@@ -49,6 +54,10 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 OPS_PER_S = 67e12             # H100 SXM 32-bit rate outside tensor cores
 CSRC = "stereovision_tpu_torch/csrc/"
 PALLAS = "stereovision_tpu/ops/pallas/"
+SOURCES = {"matching": (CSRC + "matching.cu", PALLAS + "matching_pl.py:60"),
+           "support": (CSRC + "support.cu", PALLAS + "support_pl.py:50"),
+           "lr_check": (CSRC + "lr.cu", PALLAS + "lr_pl.py:36"),
+           "speckle_ccl": (CSRC + "ccl.cu", PALLAS + "ccl_pl.py:82")}
 
 
 def card_line() -> str:
@@ -123,45 +132,17 @@ def profile_frames(eng, scenes) -> dict:
                 1 - busy / wall_us, "device_ms_by_kernel": dict(top)}
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 2
-    sys.path.insert(0, REPO)
-    from stereovision_tpu_torch.engine import StereoEngine, bgr_to_gray
-    from stereovision_tpu_torch.hostlib import raster
+def check_kernels(eng, p, left, right, card, mode) -> dict:
+    """Phase 4 for one mode: every kernel of the path against its plain
+    version on one frame's real inputs; returns the result lines by
+    kernel name."""
+    from stereovision_tpu_torch.engine import bgr_to_gray
     from stereovision_tpu_torch.ops import matching, postprocess, support
-    from stereovision_tpu_torch.ops.cuda import (_lib, ccl_cu, lr_cu,
-                                                 matching_cu, support_cu)
-    from stereovision_tpu_torch.params import app_params
-    from stereovision_tpu_torch.synthetic import stereo_pair
-
-    # 1. the card
-    card = card_line()
-    kind = torch.cuda.get_device_name(0)
-    print("card:", card, "| torch:", kind, "| torch", torch.__version__,
-          "cuda", torch.version.cuda, flush=True)
-
-    # 2. build
-    t0 = time.perf_counter()
-    host = raster.get_lib()
-    t1 = time.perf_counter()
-    kernels = _lib.kernels()
-    t2 = time.perf_counter()
-    assert host is not None and kernels is not None
-    print(json.dumps({"build": {"host_lib_s": t1 - t0, "cuda_kernels_s":
-                                t2 - t1, "host_lib": host._name,
-                                "kernels": kernels._name}}), flush=True)
-
-    # 3. scene
-    p = app_params()
-    calib = os.path.join(REPO, "stereovision_tpu_torch", "data",
-                         "kitti_2011_09_26.yml")
-    eng = StereoEngine(calib, W, H, params=p)
+    from stereovision_tpu_torch.ops.cuda import (ccl_cu, lr_cu, matching_cu,
+                                                 support_cu)
     elas = eng.elas
-    left, right, _ = stereo_pair(W, H, seed=0)
-
-    # 4. kernels against their plain versions on one frame's real inputs
+    Ho, Wo = elas.Ho, elas.Wo
+    s = matching.lattice_step(p)
     desc1, desc2, d_can = elas.stage_support(bgr_to_gray(left),
                                              bgr_to_gray(right))
     geo = elas.geometry_to_device(elas.host_mid(d_can.cpu().numpy()))
@@ -174,6 +155,7 @@ def main() -> int:
                                        right_image=True)
     L1, _ = lr_cu.lr_consistency_check(D1, D2, p)
     torch.cuda.synchronize()
+    Hc = -(-H // p.step)
 
     def support_ops():
         """Least operations of the support scan.  Both directions read one
@@ -191,13 +173,13 @@ def main() -> int:
             per_row += 64 * f.size + fg.size + fwd.size + bwd.size
         return Hc * per_row
 
-    Hc = -(-H // p.step)
-
     def n_candidates(maps, gm, right_image):
+        """Candidates this frame's data gives the matching pass: each
+        output pixel's cell bits and plane window, warp inside the row."""
         lo, hi = maps[0], maps[1]
-        gy = torch.arange(H, device=lo.device) // p.grid_size
-        gx = torch.arange(W, device=lo.device) // p.grid_size
-        uu = torch.arange(W, device=lo.device)[None, :]
+        gy = torch.arange(Ho, device=lo.device) * s // p.grid_size
+        gx = torch.arange(Wo, device=lo.device) * s // p.grid_size
+        uu = torch.arange(Wo, device=lo.device)[None, :] * s
         n = 0
         for d in range(p.disp_num):
             uw = uu + d if right_image else uu - d
@@ -212,15 +194,16 @@ def main() -> int:
     mat_l = matching_cu.layout(desc1, desc2, gm_l, p)
     mat_r = matching_cu.layout(desc2, desc1, gm_r, p)
     n_words = -(-p.disp_num // 32)
-    match_bytes = (2 * H * W * 16 + gm_l.shape[1] * gm_l.shape[2] * n_words
-                   * 4 + 4 * H * W * 4 + p.disp_num * 4 + H * W * 4)
+    # A on the lattice, B's full rows, cell words, four maps, prior, keys
+    match_bytes = (Ho * Wo * 16 + Ho * W * 16 + gm_l.shape[1]
+                   * gm_l.shape[2] * n_words * 4 + 4 * Ho * Wo * 4
+                   + p.disp_num * 4 + Ho * Wo * 4)
     checks = {
         "support": dict(
             kernel=lambda: support_cu.support_scan(desc1, desc2, p),
             launch=lambda: support_cu.launch(*sup_in, p),
             plain=lambda: support.support_scan(desc1, desc2, p),
-            nbytes=2 * Hc * W * 32 + 8 * Hc * W * 4, ops=support_ops(),
-            source=CSRC + "support.cu", replaces=PALLAS + "support_pl.py:50"),
+            nbytes=2 * Hc * W * 32 + 8 * Hc * W * 4, ops=support_ops()),
         "matching_left": dict(
             kernel=lambda: matching_cu.match_keys(desc1, desc2, *maps_l,
                                                   gm_l, p, False),
@@ -240,13 +223,11 @@ def main() -> int:
         "lr_check": dict(
             kernel=lambda: lr_cu.lr_consistency_check(D1, D2, p),
             plain=lambda: postprocess.lr_consistency_check(D1, D2, p),
-            nbytes=4 * H * W * 4, ops=2 * H * W * 8,
-            source=CSRC + "lr.cu", replaces=PALLAS + "lr_pl.py:36"),
+            nbytes=4 * Ho * Wo * 4, ops=2 * Ho * Wo * 8),
         "speckle_ccl": dict(
             kernel=lambda: ccl_cu.remove_small_segments(L1, p),
             plain=lambda: postprocess.remove_small_segments(L1, p),
-            nbytes=2 * H * W * 4, ops=H * W * 16,
-            source=CSRC + "ccl.cu", replaces=PALLAS + "ccl_pl.py:82"),
+            nbytes=2 * Ho * Wo * 4, ops=Ho * Wo * 16),
     }
     results = {}
     for name, c in checks.items():
@@ -254,7 +235,7 @@ def main() -> int:
         torch.cuda.synchronize()
         p_out = c["plain"]()
         bad, err = compare(k_out, p_out)
-        r = dict(name=name, mismatches=bad, max_abs_err=err,
+        r = dict(name=name, mode=mode, mismatches=bad, max_abs_err=err,
                  ms=event_ms(c.get("launch", c["kernel"])),
                  wrapper_ms=event_ms(c["kernel"]),
                  plain_ms=event_ms(c["plain"]), bytes=c["nbytes"],
@@ -262,10 +243,21 @@ def main() -> int:
         r["bound_ms"], r["bound_by"] = bound_ms(c["nbytes"], c["ops"])
         results[name] = r
         print(json.dumps(r), flush=True)
-        assert bad == 0, "%s: kernel and plain version differ" % name
+        assert bad == 0, "%s (%s): kernel and plain version differ" % (
+            name, mode)
+    return results
 
-    # 5. the main path, through the entry point a user calls
-    scenes = [stereo_pair(W, H, seed=s) for s in range(1, FRAMES + 2)]
+
+def drive_main_path(eng, calib, scenes, card, mode) -> dict:
+    """Phase 5 for one mode: process_frame over the frames after a
+    warm-up, launch counts, the CPU reference on frame 0, sanity on every
+    frame, stage times and a profile; returns the launch counts."""
+    from stereovision_tpu_torch.engine import StereoEngine, bgr_to_gray
+    from stereovision_tpu_torch.ops.cuda import (ccl_cu, lr_cu, matching_cu,
+                                                 support_cu)
+    elas = eng.elas
+    Ho, Wo = elas.Ho, elas.Wo
+    step = W // Wo
     eng.process_frame(scenes[0][0], scenes[0][1])
     torch.cuda.synchronize()
     wrappers = {"matching": matching_cu, "support": support_cu,
@@ -279,7 +271,8 @@ def main() -> int:
         frame_s.append(time.perf_counter() - t)
     launches = {k: m.launches for k, m in wrappers.items()}
     print(json.dumps({"main_path": {
-        "frames": FRAMES, "frame_ms": [1e3 * s for s in frame_s],
+        "mode": mode, "frames": FRAMES,
+        "frame_ms": [1e3 * s for s in frame_s],
         "frame_ms_median": 1e3 * float(np.median(frame_s)),
         "launches": launches, "card": card}}), flush=True)
     assert launches["matching"] == 2 * FRAMES, launches
@@ -289,20 +282,22 @@ def main() -> int:
 
     for (lf, rf, truth), out in zip(scenes[1:], outs):
         D = out["disparity"].cpu().numpy()
-        assert out["dmap"].shape == (H, W) and out["dmap"].dtype == np.uint8
+        assert D.shape == (Ho, Wo), D.shape
+        assert out["dmap"].shape == (Ho, Wo) and out["dmap"].dtype == np.uint8
         assert out["points"].shape == (H * W, 3)
-        shown = out["dmap"].reshape(-1) > 0
-        assert np.isfinite(out["points"][shown]).all()
+        pts = out["points"].reshape(H, W, 3)[::step, ::step][:Ho, :Wo]
+        assert np.isfinite(pts[out["dmap"] > 0]).all()
         valid = D >= 0
-        err = float(np.median(np.abs(D[valid] - truth[valid])))
+        t = truth[::step, ::step][:Ho, :Wo]
+        err = float(np.median(np.abs(D[valid] - t[valid])))
         assert valid.mean() >= 0.8 and err <= 1, (valid.mean(), err)
-    ref = StereoEngine(calib, W, H, params=p, device="cpu").process_frame(
+    ref = StereoEngine(calib, W, H, params=eng.p, device="cpu").process_frame(
         scenes[1][0], scenes[1][1])
     assert torch.equal(outs[0]["disparity"].cpu(), ref["disparity"])
     assert np.array_equal(outs[0]["dmap"], ref["dmap"])
     np.testing.assert_array_equal(outs[0]["points"], ref["points"])
     print(json.dumps({"cpu_reference": "D1, dmap and points of frame 0 "
-                      "equal bit for bit", "valid_frac_min": min(
+                      "equal bit for bit", "mode": mode, "valid_frac_min": min(
                           float((o["disparity"] >= 0).float().mean())
                           for o in outs)}), flush=True)
 
@@ -325,27 +320,78 @@ def main() -> int:
             stages[k].append(1e3 * dt)
     print(json.dumps({"stage_ms_median": {k: float(np.median(v))
                                           for k, v in stages.items()},
-                      "card": card}), flush=True)
+                      "mode": mode, "card": card}), flush=True)
     print(json.dumps({"profile": profile_frames(eng, scenes[1:3]),
-                      "card": card}), flush=True)
+                      "mode": mode, "card": card}), flush=True)
+    return launches
 
-    # 6. summary lines
+
+def kernel_rows(results, launches, suffix) -> list:
+    """The `kernels` line's rows of one mode; the matching row averages
+    the left and right passes."""
     rows = []
     for name in ("matching", "support", "lr_check", "speckle_ccl"):
         if name == "matching":
             a, b = results["matching_left"], results["matching_right"]
             r = {k: (a[k] + b[k]) / 2 for k in ("ms", "plain_ms", "bound_ms")}
             r.update(max_abs_err=max(a["max_abs_err"], b["max_abs_err"]),
-                     bound_by=a["bound_by"], source=CSRC + "matching.cu",
-                     replaces=PALLAS + "matching_pl.py:60")
+                     bound_by=a["bound_by"])
         else:
-            r = dict(results[name], source=checks[name]["source"],
-                     replaces=checks[name]["replaces"])
-        rows.append({"name": name, "route": "cuda", "source": r["source"],
-                     "replaces": r["replaces"], "launches": launches[name],
+            r = results[name]
+        source, replaces = SOURCES[name]
+        rows.append({"name": name + suffix, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None})
+    return rows
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from stereovision_tpu_torch.engine import StereoEngine
+    from stereovision_tpu_torch.hostlib import raster
+    from stereovision_tpu_torch.ops.cuda import _lib
+    from stereovision_tpu_torch.params import app_params
+    from stereovision_tpu_torch.synthetic import stereo_pair
+
+    # 1. the card
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print("card:", card, "| torch:", kind, "| torch", torch.__version__,
+          "cuda", torch.version.cuda, flush=True)
+
+    # 2. build
+    t0 = time.perf_counter()
+    host = raster.get_lib()
+    t1 = time.perf_counter()
+    kernels = _lib.kernels()
+    t2 = time.perf_counter()
+    assert host is not None and kernels is not None
+    print(json.dumps({"build": {"host_lib_s": t1 - t0, "cuda_kernels_s":
+                                t2 - t1, "host_lib": host._name,
+                                "kernels": kernels._name}}), flush=True)
+
+    # 3. scene
+    calib = os.path.join(REPO, "stereovision_tpu_torch", "data",
+                         "kitti_2011_09_26.yml")
+    left, right, _ = stereo_pair(W, H, seed=0)
+    scenes = [stereo_pair(W, H, seed=s) for s in range(1, FRAMES + 2)]
+
+    # 4-5. each mode: kernels against their plain versions, the main path
+    rows = []
+    for mode, suffix, p in (("full", "", app_params()),
+                            ("subsampled", "_subsampled",
+                             app_params(subsampling=True))):
+        eng = StereoEngine(calib, W, H, params=p)
+        results = check_kernels(eng, p, left, right, card, mode)
+        launches = drive_main_path(eng, calib, scenes, card, mode)
+        rows += kernel_rows(results, launches, suffix)
+
+    # 6. summary lines
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

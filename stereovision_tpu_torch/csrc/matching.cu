@@ -1,16 +1,19 @@
-// K1: dense MAP matching.
+// K1: dense MAP matching, at full resolution and on the half lattice.
 //
 // Replaces the Pallas kernel stereovision_tpu/ops/pallas/matching_pl.py:60
-// (_kernel, wrappers compute_disparity :313 and compute_disparity_pair
-// :476, helpers _pack_bytes :295 and _active_lists :302).  Per pixel it
-// returns the minimum over its candidate disparities of the key
+// (_kernel, both modes: sub=True reads even/odd B planes :62-66, shifts by
+// d>>1 :96 and warps the full-res column 2u :121; wrappers
+// compute_disparity :313 and compute_disparity_pair :476, helpers
+// _pack_bytes :295 and _active_lists :302).  Per output pixel (x, y), at
+// the full-resolution pixel (u, v) = (s x, s y) with lattice step s = 1 or
+// 2, it returns the minimum over its candidate disparities of the key
 //   ((SAD16 + prior + off) * 2 + in_window) * 512 + d     (:135)
-// where the candidates are the grid cell's set bits outside the plane
-// window [d_lo, d_hi] plus the window itself, and the warped column u -/+ d
-// must lie in [2, W-3].  The key carries d in its low 9 bits, so it is a
-// total order and the minimum does not depend on the visiting order.  The
-// plane maps (d_lo, d_hi, d_plane, pvalid) come from the PyTorch prep; the
-// kernel never evaluates the plane.  Plain version: ops/matching.py
+// where the candidates are the set bits of the cell of (u, v) outside the
+// plane window [d_lo, d_hi] plus the window itself, and the warped column
+// u -/+ d must lie in [2, W-3].  The key carries d in its low 9 bits, so it
+// is a total order and the minimum does not depend on the visiting order.
+// The plane maps (d_lo, d_hi, d_plane, pvalid) come from the PyTorch prep;
+// the kernel never evaluates the plane.  Plain version: ops/matching.py
 // (match_keys).
 //
 // What bounds it: bytes.  The inputs are 2 x 7.5 MB of descriptors plus
@@ -21,7 +24,10 @@
 // descriptor is one 16-byte load and its SAD four __vsadu4.  Each thread
 // walks only its own candidates — the set bits of its cell's packed words
 // (__ffs) and its window — instead of the TPU kernel's per-block active
-// lists, lane windows and rolls.
+// lists, lane windows and rolls.  On the half lattice A holds only the
+// lattice's columns while B keeps its full rows, so a thread's warp s x -/+ d
+// is still one 16-byte load: the TPU kernel's even/odd B planes and
+// per-parity active lists have no counterpart.
 
 #include "svtt_cuda.cuh"
 
@@ -30,22 +36,25 @@ namespace {
 using svtt::kBig;
 using svtt::sad16;
 
-// A, B: (H, W, 16) uint8 as (H, W) uint4; cell_bits: (Gh, Gw, nwords)
+// A: (Ho, Wo, 16) uint8 as (Ho, Wo) uint4, the lattice's descriptors;
+// B: (Ho, W, 16) as (Ho, W) uint4, full rows; cell_bits: (Gh, Gw, nwords)
 // packed candidate words (bit b of word w = disparity 32 w + b);
-// d_lo/d_hi/d_plane/pvalid: (H, W) int32; prior: (D,) int32.
+// d_lo/d_hi/d_plane/pvalid: (Ho, Wo) int32; prior: (D,) int32.
 __global__ void match_keys_kernel(
     const uint4* __restrict__ A, const uint4* __restrict__ B,
     const unsigned* __restrict__ cell_bits, const int* __restrict__ d_lo,
     const int* __restrict__ d_hi, const int* __restrict__ d_plane,
-    const int* __restrict__ pvalid, const int* __restrict__ prior, int W,
-    int D, int nwords, int gs, int Gw, int off, int right,
+    const int* __restrict__ pvalid, const int* __restrict__ prior, int Wo,
+    int W, int step, int D, int nwords, int gs, int Gw, int off, int right,
     int* __restrict__ key) {
-    const int u = blockIdx.x * blockDim.x + threadIdx.x;
-    const int v = blockIdx.y;
-    if (u >= W) return;
-    const size_t i = (size_t)v * W + u;
+    const int x = blockIdx.x * blockDim.x + threadIdx.x;
+    const int y = blockIdx.y;
+    if (x >= Wo) return;
+    const int u = step * x;  // full-resolution column and row
+    const int v = step * y;
+    const size_t i = (size_t)y * Wo + x;
     const uint4 a = A[i];
-    const uint4* Brow = B + (size_t)v * W;
+    const uint4* Brow = B + (size_t)y * W;
     const int lo = d_lo[i];
     const int hi = d_hi[i];
     int best = kBig;
@@ -79,18 +88,20 @@ __global__ void match_keys_kernel(
 
 }  // namespace
 
+// Ho x Wo output lattice of step `step` over rows of W columns.
 extern "C" int svtt_match_keys(const void* A, const void* B,
                                const void* cell_bits, const void* d_lo,
                                const void* d_hi, const void* d_plane,
-                               const void* pvalid, const void* prior, int H,
-                               int W, int D, int nwords, int gs, int Gw,
-                               int off, int right, void* key, void* stream) {
+                               const void* pvalid, const void* prior, int Ho,
+                               int Wo, int W, int step, int D, int nwords,
+                               int gs, int Gw, int off, int right, void* key,
+                               void* stream) {
     const dim3 block(128);
-    const dim3 grid((W + 127) / 128, H);
+    const dim3 grid((Wo + 127) / 128, Ho);
     match_keys_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
         (const uint4*)A, (const uint4*)B, (const unsigned*)cell_bits,
         (const int*)d_lo, (const int*)d_hi, (const int*)d_plane,
-        (const int*)pvalid, (const int*)prior, W, D, nwords, gs, Gw, off,
-        right, (int*)key);
+        (const int*)pvalid, (const int*)prior, Wo, W, step, D, nwords, gs,
+        Gw, off, right, (int*)key);
     return (int)cudaGetLastError();
 }

@@ -15,12 +15,12 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from .device import resolve_device
 from .io.calibration import Rectification, rectification_from_yaml
 from .models.elas import ElasEngine
-from .ops.reproject import apply_robot_transform, reproject
+from .ops.reproject import (apply_robot_transform, linear_taps, reproject,
+                            resize_linear)
 from .params import ElasParams, app_params
 
 
@@ -47,12 +47,13 @@ class StereoEngine:
                  scale: float = 1.0,
                  pc_extrapolation: int = 1,
                  params: Optional[ElasParams] = None,
+                 subsampling: bool = False,
                  true_scale_cloud: bool = False,
                  remove_sky: bool = False,
                  robot_frame: bool = False,
                  device: Optional[str] = None):
         self.device = resolve_device(device)
-        self.p = params or app_params()
+        self.p = params or app_params(subsampling=subsampling)
         self.remove_sky = remove_sky
         self.width = int(width)
         self.height = int(height)
@@ -70,9 +71,20 @@ class StereoEngine:
         self.true_scale_cloud = true_scale_cloud
         self.robot_frame = robot_frame
         self.timings: Dict[str, float] = {}
+        self._pc_taps: Dict[tuple, tuple] = {}
+
+    def pc_taps(self, shape) -> tuple:
+        """The resize's tap tables (rows, cols) from a dmap of this shape
+        to the cloud's (pc_h, pc_w), None for an axis that keeps its size;
+        made once a shape, on the engine's device."""
+        if shape not in self._pc_taps:
+            self._pc_taps[shape] = tuple(
+                linear_taps(n, m, self.device) if n != m else None
+                for n, m in zip(shape, (self.pc_h, self.pc_w)))
+        return self._pc_taps[shape]
 
     def reproject(self, D1: torch.Tensor):
-        """D1 -> (dmap (H, W) uint8 display disparity, points
+        """D1 -> (dmap (Ho, Wo) uint8 display disparity, points
         (pc_h, pc_w, 3) float32), both on D1's device."""
         dmap = torch.clamp(torch.round(D1 * self.disp_display_scale),
                            0, 255).to(torch.uint8)
@@ -80,13 +92,8 @@ class StereoEngine:
             # zero disparity above ~55% height (reference remove_sky,
             # stereo_vision.cpp:484-490: mask rows [0, H/2*1.1))
             dmap[:int(dmap.shape[0] // 2 * 1.1)] = 0
-        pc = dmap
-        if (self.pc_h, self.pc_w) != tuple(dmap.shape):
-            # jax.image.resize "linear" == half-pixel-centred bilinear
-            pc = F.interpolate(dmap.to(torch.float32)[None, None],
-                               size=(self.pc_h, self.pc_w), mode="bilinear",
-                               align_corners=False)[0, 0]
-        d_for_q = pc.to(torch.float32)
+        d_for_q = resize_linear(dmap.to(torch.float32),
+                                *self.pc_taps(tuple(dmap.shape)))
         if self.true_scale_cloud:
             d_for_q = d_for_q / self.disp_display_scale
         points = reproject(d_for_q, self.rect.Q)

@@ -12,7 +12,9 @@ Structure:
 
 The engine runs on the card unless it is given device="cpu"; each kernel
 wrapper picks the kernel or its plain version from the device its tensors
-live on.  Full resolution only.
+live on.  Under subsampling (params.subsampling) stage A is unchanged (full
+resolution, candidate step forced even) and stage B runs on the
+(H//2, W//2) output lattice.
 """
 
 from __future__ import annotations
@@ -39,9 +41,6 @@ class ElasEngine:
 
     def __init__(self, params: ElasParams, width: int, height: int,
                  device: Optional[str] = None):
-        if params.subsampling:
-            raise NotImplementedError(
-                "the PyTorch port runs the full-resolution mode only")
         self.p = params
         self.device = resolve_device(device)
         self.width = int(width)
@@ -53,6 +52,8 @@ class ElasEngine:
         self.n_max = min(self.Hc * self.Wc + 6, 8192)
         self.t_max = 2 * self.n_max + 8
         self.Ho, self.Wo = params.out_shape(self.width, self.height)
+        # runs per span-coded row are set by triangle-edge crossings, which
+        # the half lattice keeps: the cap follows the full width
         self.s_max = max(64, min(self.width // 4, self.Wo))
 
     # ---- device stage A ---------------------------------------------------
@@ -74,7 +75,8 @@ class ElasEngine:
     def host_mid(self, d_can: np.ndarray) -> Dict[str, np.ndarray]:
         """Support grid -> padded geometry arrays (fixed shapes): pts
         (n_max, 3) int16, tris_l/r (t_max, 3) int16 and the triangle-id
-        maps as span codes tri_l/r (H, s_max, 3) uint8."""
+        maps on the output lattice as span codes tri_l/r (Ho, s_max, 3)
+        uint8."""
         d_can = filter_support_sequential(np.asarray(d_can), self.p)
         g = host_geometry(d_can, self.p, self.width, self.height,
                           rasterize=rasterize, n_cap=self.n_max)
@@ -89,6 +91,8 @@ class ElasEngine:
             out["tris_" + tag] = tr
             tri = np.where(g["tri_id_" + tag] >= self.t_max, -1,
                            g["tri_id_" + tag])
+            if self.p.subsampling:
+                tri = tri[::2, ::2][:self.Ho, :self.Wo]
             out["tri_" + tag] = encode_tri_spans(tri, self.s_max)
         return out
 
@@ -114,8 +118,8 @@ class ElasEngine:
 
     def stage_dense(self, desc1, desc2, pts, tris_l, tris_r, tri_l,
                     tri_r) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Descriptors + geometry tensors -> (D1, D2) float32 (-10 / -1 =
-        invalid)."""
+        """Descriptors + geometry tensors -> (D1, D2) float32 (Ho, Wo)
+        maps of full-resolution disparities (-10 / -1 = invalid)."""
         p = self.p
         left, right = self.dense_inputs(pts, tris_l, tris_r, tri_l, tri_r)
         D1 = matching_cu.compute_disparity(desc1, desc2, *left, p,
@@ -143,8 +147,8 @@ class ElasEngine:
 
     def process(self, I1, I2) -> Tuple[torch.Tensor, torch.Tensor]:
         """Blocking single-frame processing.  I1, I2: (H, W) uint8
-        grayscale.  Returns (D1, D2) float32 tensors on the engine's
-        device."""
+        grayscale.  Returns (D1, D2) float32 (Ho, Wo) tensors on the
+        engine's device."""
         desc1, desc2, d_can = self.stage_support(I1, I2)
         g = self.host_mid(d_can.cpu().numpy())
         return self.stage_dense(desc1, desc2, *self.geometry_to_device(g))

@@ -32,8 +32,8 @@ _SIGNATURES = {
     # name: argtypes (every function returns the launch's cudaError_t)
     "svtt_support_scan": [_P, _P, _I, _I, _I, _I, _P, _P],
     "svtt_match_keys": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                        _I, _I, _I, _P, _P],
-    "svtt_lr_check": [_P, _P, _I, _I, _F, _P, _P, _P],
+                        _I, _I, _I, _I, _I, _P, _P],
+    "svtt_lr_check": [_P, _P, _I, _I, _F, _F, _P, _P, _P],
     "svtt_speckle": [_P, _I, _I, _F, _I, _P, _P, _P, _P],
 }
 

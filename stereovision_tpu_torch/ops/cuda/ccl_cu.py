@@ -4,7 +4,8 @@ of stereovision_tpu/ops/pallas/ccl_pl.py.
 On CUDA tensors remove_small_segments launches the kernel; on CPU tensors
 it runs the plain version ops.postprocess.remove_small_segments.
 `launches` counts launches of this wrapper's kernel sequence (init, merge,
-resolve, apply), one per call.  Full resolution only.
+resolve, apply), one per call.  The size threshold is
+ops.postprocess.speckle_threshold, which the plain version reads too.
 """
 
 from __future__ import annotations
@@ -23,15 +24,14 @@ def remove_small_segments(D: torch.Tensor, p: ElasParams) -> torch.Tensor:
     global launches
     if D.device.type == "cpu":
         return plain.remove_small_segments(D, p)
-    if p.subsampling:
-        raise NotImplementedError("the speckle kernel is full-resolution only")
     H, W = D.shape
     _lib.expect(D, "D", torch.float32, (H, W))
     labels = torch.empty((H, W), dtype=torch.int32, device=D.device)
     sizes = torch.zeros((H, W), dtype=torch.int32, device=D.device)
     out = torch.empty_like(D)
     err = _lib.kernels().svtt_speckle(
-        _lib.ptr(D), H, W, float(p.speckle_sim_threshold), p.speckle_size,
+        _lib.ptr(D), H, W, float(p.speckle_sim_threshold),
+        plain.speckle_threshold(p),
         _lib.ptr(labels), _lib.ptr(sizes), _lib.ptr(out), _lib.stream())
     _lib.check(err, "remove_small_segments")
     launches += 1

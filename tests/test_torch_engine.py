@@ -2,10 +2,11 @@
 
 Same NumPy frames into both: ElasEngine.process (D1, D2) and
 StereoEngine.process_frame (dmap, points) must match bit for bit at
-160x120 (D = 64, two presets) and at the main path's full width, 1242x375
-under app_params() (D = 256), with every option of the frame tail
-(remove_sky, true_scale_cloud, robot_frame, pc_extrapolation).  Plus: the
-port
+160x120 (D = 64, two presets, each at full resolution and subsampled) and
+at the main path's full width, 1242x375 under app_params() and
+app_params(subsampling=True) (D = 256), with every option of the frame
+tail (remove_sky, true_scale_cloud, robot_frame, pc_extrapolation, and the
+resize of the half-lattice map to the cloud's size).  Plus: the port
 imports neither jax nor stereovision_tpu, its entry points default to the
 card and raise without one, and the state converters carry the JAX host
 geometry into the port's stage B.
@@ -40,6 +41,8 @@ W, H = 160, 120
 PRESETS = {
     "app": lambda: j_app_params().replace(disp_max=63),
     "robotics": lambda: j_robotics_params(disp_max=63),
+    "app_sub": lambda: j_app_params(subsampling=True).replace(disp_max=63),
+    "robotics_sub": lambda: j_robotics_params(disp_max=63, subsampling=True),
 }
 
 
@@ -58,6 +61,18 @@ def _eq(port, ref):
 def _gray_pair(w, h, seed):
     left, right, disp = stereo_pair(w, h, seed)
     return bgr_to_gray(left), bgr_to_gray(right), disp
+
+
+def _check_sanity(D1, disp, valid_frac):
+    """Enough of D1 valid, and its median error against the true
+    disparity at the output lattice's pixels <= 1."""
+    D1 = D1.numpy()
+    Ho, Wo = D1.shape
+    step = disp.shape[1] // Wo
+    truth = disp[::step, ::step][:Ho, :Wo]
+    valid = D1 >= 0
+    assert valid.mean() > valid_frac
+    assert np.median(np.abs(D1[valid] - truth[valid])) <= 1
 
 
 def test_port_imports_no_jax():
@@ -88,11 +103,6 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     assert ElasEngine(p, W, H, device="cpu").device.type == "cpu"
 
 
-def test_subsampling_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        ElasEngine(svt.app_params(subsampling=True), W, H, device="cpu")
-
-
 def test_params_from_dict_round_trip():
     for make in PRESETS.values():
         jp = make()
@@ -115,6 +125,8 @@ def test_stage_b_from_jax_geometry(preset):
                           ("pts", "tris_l", "tris_r", "tri_l", "tri_r")))
     pe = ElasEngine(_port(jp), W, H, device="cpu")
     geo = geometry_to_torch(g, "cpu")
+    # span codes on the output lattice, the run cap sized by full width
+    assert geo["tri_l"].shape == (pe.Ho, pe.s_max, 3) == (je.Ho, je.s_max, 3)
     D1, D2 = pe.stage_dense(torch.as_tensor(np.array(desc1)),
                             torch.as_tensor(np.array(desc2)), *geo.values())
     _eq(D1, ref[0])
@@ -129,22 +141,39 @@ def test_elas_process_matches_jax(preset):
     D1, D2 = ElasEngine(_port(jp), W, H, device="cpu").process(I1, I2)
     _eq(D1, ref[0])
     _eq(D2, ref[1])
-    valid = D1.numpy() >= 0
-    assert valid.mean() > 0.6
-    assert np.median(np.abs(D1.numpy()[valid] - disp[valid])) <= 1
+    _check_sanity(D1, disp, 0.6)
 
 
-def test_elas_process_full_width_kitti():
-    """The main path's full width: 1242x375, app_params(), D = 256."""
+@pytest.mark.parametrize("subsampling", [False, True])
+def test_elas_process_full_width_kitti(subsampling):
+    """The main path's full width: 1242x375, app_params(), D = 256, at full
+    resolution and on the (187, 621) half lattice."""
     w, h = 1242, 375
     I1, I2, disp = _gray_pair(w, h, seed=0)
-    ref = JaxElas(j_app_params(), w, h).process(I1, I2)
-    D1, D2 = ElasEngine(svt.app_params(), w, h, device="cpu").process(I1, I2)
+    ref = JaxElas(j_app_params(subsampling=subsampling), w, h).process(I1, I2)
+    D1, D2 = ElasEngine(svt.app_params(subsampling=subsampling), w, h,
+                        device="cpu").process(I1, I2)
+    assert D1.shape == ((187, 621) if subsampling else (h, w))
     _eq(D1, ref[0])
     _eq(D2, ref[1])
-    valid = D1.numpy() >= 0
-    assert valid.mean() > 0.8
-    assert np.median(np.abs(D1.numpy()[valid] - disp[valid])) <= 1
+    _check_sanity(D1, disp, 0.8)
+
+
+def test_process_frame_full_width_subsampled():
+    """StereoEngine(subsampling=True).process_frame at 1242x375: the
+    (187, 621) dmap and the (375 * 1242, 3) cloud, resized from it, match
+    the JAX engine bit for bit."""
+    w, h = 1242, 375
+    left, right, _ = stereo_pair(w, h, seed=0)
+    ref = JaxStereo(CALIB, w, h, subsampling=True,
+                    use_pallas=False).process_frame(left, right)
+    out = StereoEngine(CALIB, w, h, subsampling=True,
+                       device="cpu").process_frame(left, right)
+    assert out["dmap"].shape == (187, 621)
+    assert out["points"].shape == (h * w, 3)
+    _eq(out["disparity"], ref["disparity"])
+    _eq(out["dmap"], ref["dmap"])
+    _eq(out["points"], ref["points"])
 
 
 FRAME_OPTIONS = {
@@ -153,23 +182,29 @@ FRAME_OPTIONS = {
 }
 
 
+@pytest.mark.parametrize("preset", sorted(PRESETS))
 @pytest.mark.parametrize("opts", sorted(FRAME_OPTIONS))
-def test_process_frame_matches_jax(opts):
+def test_process_frame_matches_jax(opts, preset):
     """dmap (round half to even, x4, clipped uint8) and the Q-reprojected
-    points match bit for bit."""
+    points (of the dmap resized to the frame's size under subsampling)
+    match bit for bit."""
     kw = FRAME_OPTIONS[opts]
-    jp = j_app_params().replace(disp_max=63)
+    jp = PRESETS[preset]()
     left, right, _ = stereo_pair(W, H, seed=8)
     ref = JaxStereo(CALIB, W, H, params=jp, use_pallas=False,
                     **kw).process_frame(left, right)
     out = StereoEngine(CALIB, W, H, params=_port(jp), device="cpu",
                        **kw).process_frame(left, right)
-    assert out["dmap"].dtype == np.uint8 and out["dmap"].shape == (H, W)
+    assert out["dmap"].dtype == np.uint8
+    assert out["dmap"].shape == jp.out_shape(W, H)
+    assert out["points"].shape == (H * W, 3)
     _eq(out["dmap"], ref["dmap"])
     _eq(out["points"], ref["points"])
-    # zero disparity reprojects to infinity, in both packages
-    shown = out["dmap"].reshape(-1) > 0
-    assert np.isfinite(out["points"][shown]).all()
+    # zero disparity reprojects to infinity, in both packages; the cloud's
+    # pixel (s y, s x) takes a positive weight of dmap[y, x]
+    Ho, Wo = out["dmap"].shape
+    pts = out["points"].reshape(H, W, 3)[::H // Ho, ::W // Wo][:Ho, :Wo]
+    assert np.isfinite(pts[out["dmap"] > 0]).all()
 
 
 def test_display_disparity_rounds_half_to_even():
@@ -191,21 +226,43 @@ def test_display_disparity_rounds_half_to_even():
         .reproject(halves[None, :])[0].tolist() == [[0, 2, 10, 12]]
 
 
-@pytest.mark.parametrize("opts", ["robot_frame", "pc_extrapolation"])
+FLOAT_OPTIONS = {
+    # name: (width, height, subsampling, StereoEngine options)
+    "robot_frame": (W, H, False, {"robot_frame": True}),
+    "pc_extrapolation": (W, H, False, {"pc_extrapolation": 2}),
+    "pc_extrapolation_3": (W, H, False, {"pc_extrapolation": 3}),
+    "subsampled_kitti": (1242, 375, True, {}),
+}
+
+
+@pytest.mark.parametrize("opts", sorted(FLOAT_OPTIONS))
 def test_process_frame_float_options(opts):
-    """robot_frame (points @ XR.T + XT, a 3-term float32 product) and
-    pc_extrapolation=2 (jax.image.resize "linear" against PyTorch's
-    bilinear interpolation with align_corners=False: the same half-pixel
-    weights 1/4 and 3/4 on small integers) match bit for bit too; NaN
-    (from infinite points times zero rotation entries) counts as equal to
-    NaN."""
-    kw = ({"robot_frame": True} if opts == "robot_frame"
-          else {"pc_extrapolation": 2})
-    jp = j_app_params().replace(disp_max=63)
-    left, right, _ = stereo_pair(W, H, seed=9)
-    ref = JaxStereo(CALIB, W, H, params=jp, use_pallas=False,
-                    **kw).process_frame(left, right)
-    out = StereoEngine(CALIB, W, H, params=_port(jp), device="cpu",
-                       **kw).process_frame(left, right)
-    _eq(out["dmap"], ref["dmap"])
-    np.testing.assert_array_equal(out["points"], np.asarray(ref["points"]))
+    """The float tail matches bit for bit: robot_frame (points @ XR.T + XT,
+    a 3-term float32 product) and the resize of dmap to the cloud's size,
+    which must compute what jitted jax.image.resize(..., "linear") does
+    (its own weights, columns contracted before rows, each output
+    fma(w1, x1, w0*x0)): by 2 and 3 at 160x120 (process_frame), and the
+    half lattice's (187, 621) -> (375, 1242) at KITTI width (reproject of
+    a random map).  A random map goes through reproject in every case;
+    NaN (from infinite points times zero rotation entries) counts as equal
+    to NaN."""
+    w, h, sub, kw = FLOAT_OPTIONS[opts]
+    jp = j_app_params(subsampling=sub)
+    if w == W:
+        jp = jp.replace(disp_max=63)
+    ref_eng = JaxStereo(CALIB, w, h, params=jp, use_pallas=False, **kw)
+    eng = StereoEngine(CALIB, w, h, params=_port(jp), device="cpu", **kw)
+    rng = np.random.default_rng(5)
+    D = (rng.integers(-2, 70, jp.out_shape(w, h))
+         + rng.random(jp.out_shape(w, h))).astype(np.float32)
+    ref = ref_eng._reproject(jnp.asarray(D))
+    dmap, points = eng.reproject(torch.as_tensor(D))
+    _eq(dmap, ref[0])
+    np.testing.assert_array_equal(points.numpy(), np.asarray(ref[1]))
+    if w == W:
+        left, right, _ = stereo_pair(w, h, seed=9)
+        ref = ref_eng.process_frame(left, right)
+        out = eng.process_frame(left, right)
+        _eq(out["dmap"], ref["dmap"])
+        np.testing.assert_array_equal(out["points"],
+                                      np.asarray(ref["points"]))

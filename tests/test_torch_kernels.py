@@ -24,6 +24,8 @@ from stereovision_tpu_torch.synthetic import stereo_pair
 PRESETS = {
     "app": lambda: app_params().replace(disp_max=63),
     "robotics": lambda: robotics_params(disp_max=63),
+    "app_sub": lambda: app_params(subsampling=True).replace(disp_max=63),
+    "robotics_sub": lambda: robotics_params(disp_max=63, subsampling=True),
 }
 # a width that is not a multiple of the kernels' 128-thread blocks
 SIZES = [(160, 120), (333, 101)]
@@ -46,8 +48,9 @@ def _equal(kernel_out, plain_out):
 @pytest.mark.parametrize("size", SIZES)
 @pytest.mark.parametrize("preset", sorted(PRESETS))
 def test_kernels_match_plain_versions(cuda, preset, size):
-    """K2, K1 (both passes), K4 and K3 on one frame's real inputs: the
-    kernel's output equals the plain version's exactly."""
+    """K2, K1 (both passes), K4 and K3 on one frame's real inputs, at full
+    resolution and on the subsampled half lattice: the kernel's output
+    equals the plain version's exactly."""
     p = PRESETS[preset]()
     w, h = size
     eng = ElasEngine(p, w, h, device="cpu")

@@ -4,8 +4,9 @@ Both packages get the same NumPy inputs: a seeded synthetic scene at
 160x120 (textured, slanted ground plus two boxes, so that support points,
 Delaunay and plane priors all do real work) run through the JAX engine's
 XLA path (use_pallas=False, which tests/test_pallas_kernels.py holds
-bit-exact against the Pallas kernels).  Every integer stage and every
-float stage on the main path must match bit for bit.
+bit-exact against the Pallas kernels), at full resolution and on the
+subsampled half lattice.  Every integer stage and every float stage on the
+main path must match bit for bit.
 
 The kernels themselves are held against their plain versions on the card
 (tests/test_torch_kernels.py, marked `cuda`, and chip_smoke.py).
@@ -46,6 +47,8 @@ W, H = 160, 120
 PRESETS = {
     "app": lambda: j_app_params().replace(disp_max=63),
     "robotics": lambda: j_robotics_params(disp_max=63),
+    "app_sub": lambda: j_app_params(subsampling=True).replace(disp_max=63),
+    "robotics_sub": lambda: j_robotics_params(disp_max=63, subsampling=True),
 }
 
 
@@ -78,9 +81,10 @@ def stages(request):
     fit = jax.jit(j_planes.fit_plane_tables)
     planes_l, _ = fit(pts, jnp.asarray(g["tris_l"]))
     _, planes_r = fit(pts, jnp.asarray(g["tris_r"]))
+    Wo = jp.out_shape(W, H)[1]
     expand = jax.jit(j_spans.expand_tri_spans, static_argnums=1)
-    tid_l = expand(jnp.asarray(g["tri_l"]), W)
-    tid_r = expand(jnp.asarray(g["tri_r"]), W)
+    tid_l = expand(jnp.asarray(g["tri_l"]), Wo)
+    tid_r = expand(jnp.asarray(g["tri_r"]), Wo)
     gridf = jax.jit(lambda pts, right: j_grid.build_grid_mask(
         pts, jp, W, H, right_image=right), static_argnums=1)
     grid_l, grid_r = gridf(pts, False), gridf(pts, True)
@@ -94,7 +98,7 @@ def stages(request):
     G1 = jax.jit(lambda x: j_post.gap_interpolation(x, jp))(S1)
     A1 = jax.jit(lambda x: j_post.adaptive_mean(x, jp))(G1)
     M1 = jax.jit(lambda x: j_post.median_filter(x, jp))(A1)
-    return dict(jp=jp, p=p, I1=I1, I2=I2, desc1=desc1, desc2=desc2,
+    return dict(jp=jp, p=p, Wo=Wo, I1=I1, I2=I2, desc1=desc1, desc2=desc2,
                 d_can=d_can, g=g, planes_l=planes_l, planes_r=planes_r,
                 tid_l=tid_l, tid_r=tid_r, grid_l=grid_l, grid_r=grid_r,
                 D1=D1, D2=D2, L1=L1, L2=L2, S1=S1, G1=G1, A1=A1, M1=M1)
@@ -142,7 +146,8 @@ def test_fit_plane_tables(stages):
 
 def test_expand_tri_spans(stages):
     for tag in ("l", "r"):
-        tid = spans.expand_tri_spans(_t(stages["g"]["tri_" + tag]), W)
+        tid = spans.expand_tri_spans(_t(stages["g"]["tri_" + tag]),
+                                     stages["Wo"])
         _eq(tid, np.asarray(stages["tid_" + tag]).astype(np.int32))
 
 
@@ -179,15 +184,22 @@ def test_speckle(stages):
         stages["S1"])
 
 
-def test_speckle_removes_small_components():
-    p = params_from_dict(dataclasses.asdict(j_app_params()))
+@pytest.mark.parametrize("subsampling", [False, True])
+def test_speckle_removes_small_components(subsampling):
+    """Segments under speckle_size (200) px go; on the half lattice the
+    threshold is int(2 sqrt(200)) = 28 px."""
+    jp = j_app_params(subsampling=subsampling)
+    p = params_from_dict(dataclasses.asdict(jp))
+    assert post.speckle_threshold(p) == (28 if subsampling else 200)
     D = np.full((40, 50), 7.0, np.float32)
     D[5:9, 5:9] = 30.0           # 16 px island: removed
+    D[25:30, 10:16] = 50.0       # 30 px island: kept on the half lattice
     D[20, :] = -1.0              # invalid row: -10
     out = post.remove_small_segments(torch.as_tensor(D), p).numpy()
-    _eq(out, jax.jit(lambda x: j_post.remove_small_segments(
-        x, j_app_params()))(jnp.asarray(D)))
+    _eq(out, jax.jit(lambda x: j_post.remove_small_segments(x, jp))(
+        jnp.asarray(D)))
     assert (out[5:9, 5:9] == -10).all() and (out[20] == -10).all()
+    assert (out[25:30, 10:16] == (50.0 if subsampling else -10.0)).all()
 
 
 def test_gap_interpolation(stages):
@@ -198,17 +210,20 @@ def test_adaptive_mean(stages):
     _eq(post.adaptive_mean(_t(stages["G1"]), stages["p"]), stages["A1"])
 
 
-def test_adaptive_mean_random_fractional_map():
+@pytest.mark.parametrize("subsampling", [False, True])
+def test_adaptive_mean_random_fractional_map(subsampling):
     """Arbitrary float inputs exercise the rounding of every product: the
     XLA:CPU contraction fsum = fma(w0, t0, w1*t1), then fma(w_k, t_k,
-    fsum), is reproduced exactly."""
+    fsum), is reproduced exactly, with 8 taps and with the half lattice's
+    4 (held against jitted JAX: eager JAX contracts nothing and differs),
+    the latter on a map of the subsampled KITTI shape (187, 621)."""
     rng = np.random.default_rng(0)
-    D = (rng.integers(0, 60, (97, 131)) + rng.random((97, 131))
-         ).astype(np.float32)
+    shape = (187, 621) if subsampling else (97, 131)
+    D = (rng.integers(0, 60, shape) + rng.random(shape)).astype(np.float32)
     D[rng.random(D.shape) < 0.2] = -10.0
-    p = params_from_dict(dataclasses.asdict(j_app_params()))
-    ref = jax.jit(lambda x: j_post.adaptive_mean(x, j_app_params()))(
-        jnp.asarray(D))
+    jp = j_app_params(subsampling=subsampling)
+    p = params_from_dict(dataclasses.asdict(jp))
+    ref = jax.jit(lambda x: j_post.adaptive_mean(x, jp))(jnp.asarray(D))
     _eq(post.adaptive_mean(torch.as_tensor(D), p), ref)
 
 
