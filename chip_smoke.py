@@ -26,10 +26,25 @@ half lattice):
      lattice); then a per-stage breakdown (stage A, host middle, stage B,
      reproject) and two frames under torch.profiler (device busy time and
      idle share, device time by kernel);
+  6. streaming, at batch 8 at full resolution and batch 4 subsampled (the
+     batches of bench.py): the kernels' batched modes against their plain
+     versions and against B single-frame launches on one batch of real
+     inputs (exact; timed as in phase 4; bounds B times a frame's);
+     StereoEngine.stream over the 8 frames; StereoEngine.stream_batched
+     (pipeline_depth=3, host_workers="process", fetch="host") over 10
+     batches and 3 frames (a padded last batch) after a warm-up of 2
+     batches.  Every streamed frame must
+     equal that frame's process_frame from phase 5 bit for bit (dmap and
+     points), the process pool must have run, and the launch counts,
+     zeroed just before each of the two paths and read just after, must be
+     one a frame for stream and one a batch for stream_batched (K1 two).
+     It prints frames/s (the whole run's: all its frames over all its time;
+     beside it the 5 batch-aligned windows of bench.py's protocol and their
+     median) and two batches of stream_batched under torch.profiler;
 and last:
-  6. one JSON line per kernel result, one `{"kernels": [...]}` line with a
-     row per kernel and mode, the card line, and `{"ok": true, "device":
-     {...}}`.
+  7. one JSON line per kernel result, one `{"kernels": [...]}` line with a
+     row per kernel and mode, single-frame and batched, the card line, and
+     `{"ok": true, "device": {...}}`.
 
 It exits non-zero, printing no result, when CUDA is not available or the
 package is not beside it.  Every time printed names the card and its power
@@ -50,6 +65,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 W, H = 1242, 375
 FRAMES = 8
 REPS = 10
+BATCH = {"full": 8, "subsampled": 4}
+STREAM_BATCHES = 10          # stream_batched: whole batches after warm-up
+WINDOWS = 5                  # frames/s windows (bench.py's protocol)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 OPS_PER_S = 67e12             # H100 SXM 32-bit rate outside tensor cores
 CSRC = "stereovision_tpu_torch/csrc/"
@@ -92,7 +110,9 @@ def bound_ms(nbytes: float, ops: float):
 def compare(kernel_out, plain_out):
     """(mismatching elements, max |kernel - plain|) over tensors/tuples."""
     if torch.is_tensor(kernel_out):
-        kernel_out, plain_out = (kernel_out,), (plain_out,)
+        kernel_out = (kernel_out,)
+    if torch.is_tensor(plain_out):
+        plain_out = (plain_out,)
     bad, err = 0, 0.0
     for k, p in zip(kernel_out, plain_out):
         assert k.shape == p.shape and k.dtype == p.dtype, (k.shape, p.shape)
@@ -102,22 +122,30 @@ def compare(kernel_out, plain_out):
 
 
 def profile_frames(eng, scenes) -> dict:
-    """Device time of a few process_frame calls under torch.profiler: the
-    union of the device's busy intervals against the host's wall time, and
-    device milliseconds by kernel name (the ten largest)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
+    """process_frame over a few frames under torch.profiler (profile)."""
+    def run():
         for lf, rf, _ in scenes:
             eng.process_frame(lf, rf)
+    return dict(frames=len(scenes), **profile(run))
+
+
+def profile(run) -> dict:
+    """Device time of run() under torch.profiler: the union of the
+    device's busy intervals against the host's wall time, and device
+    milliseconds by kernel name (the ten largest)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t)
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     if not spans:
-        return {"frames": len(scenes), "device_busy": "not measured"}
+        return {"device_busy": "not measured"}
     busy, end, by_name = 0.0, float("-inf"), {}
     for s, e, name in spans:
         busy += max(0.0, e - max(s, end))
@@ -127,25 +155,34 @@ def profile_frames(eng, scenes) -> dict:
                          .removeprefix("void "))[0].strip()[:60]
         by_name[short] = by_name.get(short, 0.0) + (e - s) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    return {"frames": len(scenes), "wall_ms": wall_us / 1e3,
-            "device_busy_ms": busy / 1e3, "device_idle_share":
-                1 - busy / wall_us, "device_ms_by_kernel": dict(top)}
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1 - busy / wall_us,
+            "device_ms_by_kernel": dict(top)}
 
 
-def check_kernels(eng, p, left, right, card, mode) -> dict:
-    """Phase 4 for one mode: every kernel of the path against its plain
-    version on one frame's real inputs; returns the result lines by
-    kernel name."""
+def check_kernels(eng, p, frames, card, mode) -> dict:
+    """Phases 4 and 6 for one mode: every kernel of the path against its
+    plain version on real inputs, of one frame (its single-frame mode) or
+    of a batch of frames (its batched mode, also held against a
+    single-frame launch on each frame); returns the result lines by kernel
+    name."""
     from stereovision_tpu_torch.engine import bgr_to_gray
     from stereovision_tpu_torch.ops import matching, postprocess, support
     from stereovision_tpu_torch.ops.cuda import (ccl_cu, lr_cu, matching_cu,
                                                  support_cu)
     elas = eng.elas
     Ho, Wo = elas.Ho, elas.Wo
-    s = matching.lattice_step(p)
-    desc1, desc2, d_can = elas.stage_support(bgr_to_gray(left),
-                                             bgr_to_gray(right))
-    geo = elas.geometry_to_device(elas.host_mid(d_can.cpu().numpy()))
+    B = len(frames)
+    grays = [(bgr_to_gray(lf), bgr_to_gray(rf)) for lf, rf in frames]
+    if B > 1:
+        desc1, desc2, d_can = elas.stage_support_batched(np.stack(grays))
+        geo = elas.upload_geometry([elas.host_mid(dc)
+                                    for dc in d_can.cpu().numpy()])
+        frame = lambda x, i: x[i].clone()  # noqa: E731 (16-byte aligned)
+    else:
+        desc1, desc2, d_can = elas.stage_support(*grays[0])
+        geo = elas.upload_geometry(elas.host_mid(d_can.cpu().numpy()))
+        frame = lambda x, i: x  # noqa: E731
     (tid_l, pl_l, gm_l), (tid_r, pl_r, gm_r) = elas.dense_inputs(*geo)
     maps_l = matching.plane_maps(tid_l, pl_l, p)
     maps_r = matching.plane_maps(tid_r, pl_r, p)
@@ -157,36 +194,16 @@ def check_kernels(eng, p, left, right, card, mode) -> dict:
     torch.cuda.synchronize()
     Hc = -(-H // p.step)
 
-    def support_ops():
-        """Least operations of the support scan.  Both directions read one
-        table F(x, d) = SAD32(A(x), B(x - d)): forward Fg(u) = F(u-2) +
-        F(u+2) and backward Fg(u+d).  So each (row, x, d) that either
-        direction reads costs one SAD32 (32 abs-diffs, 32 adds), each Fg
-        entry one add, and each valid (u, d) of a direction one compare."""
-        u = np.arange(W)
-        per_row = 0
-        for d in range(max(p.disp_min, 0), p.disp_max + 1):
-            fwd = u[u >= d + 5]
-            bwd = u[u <= W - d - 5] + d
-            fg = np.union1d(fwd, bwd)
-            f = np.union1d(fg - 2, fg + 2)
-            per_row += 64 * f.size + fg.size + fwd.size + bwd.size
-        return Hc * per_row
+    def candidates(maps, gm, right_image):
+        return sum(n_candidates(p, [frame(m, i) for m in maps], frame(gm, i),
+                                right_image) for i in range(B))
 
-    def n_candidates(maps, gm, right_image):
-        """Candidates this frame's data gives the matching pass: each
-        output pixel's cell bits and plane window, warp inside the row."""
-        lo, hi = maps[0], maps[1]
-        gy = torch.arange(Ho, device=lo.device) * s // p.grid_size
-        gx = torch.arange(Wo, device=lo.device) * s // p.grid_size
-        uu = torch.arange(Wo, device=lo.device)[None, :] * s
-        n = 0
-        for d in range(p.disp_num):
-            uw = uu + d if right_image else uu - d
-            cand = ((gm[d][gy][:, gx] | ((d >= lo) & (d <= hi)))
-                    & (uw >= 2) & (uw <= W - 3))
-            n += int(cand.sum())
-        return n
+    def singles(fn, *args):
+        """fn on each frame of args, one single-frame launch each."""
+        if B == 1:
+            return {}
+        return {"singles": lambda: [fn(*(frame(a, i) for a in args))
+                                    for i in range(B)]}
 
     # the kernels' own inputs, laid out by their wrappers: "ms" times the
     # launch alone, "wrapper_ms" the wrapper with its layout step
@@ -194,16 +211,20 @@ def check_kernels(eng, p, left, right, card, mode) -> dict:
     mat_l = matching_cu.layout(desc1, desc2, gm_l, p)
     mat_r = matching_cu.layout(desc2, desc1, gm_r, p)
     n_words = -(-p.disp_num // 32)
-    # A on the lattice, B's full rows, cell words, four maps, prior, keys
-    match_bytes = (Ho * Wo * 16 + Ho * W * 16 + gm_l.shape[1]
-                   * gm_l.shape[2] * n_words * 4 + 4 * Ho * Wo * 4
-                   + p.disp_num * 4 + Ho * Wo * 4)
+    # a frame's A on the lattice, B's full rows, cell words, four maps,
+    # keys; one prior table
+    match_bytes = (B * (Ho * Wo * 16 + Ho * W * 16 + gm_l.shape[-2]
+                        * gm_l.shape[-1] * n_words * 4 + 4 * Ho * Wo * 4
+                        + Ho * Wo * 4) + p.disp_num * 4)
     checks = {
         "support": dict(
             kernel=lambda: support_cu.support_scan(desc1, desc2, p),
             launch=lambda: support_cu.launch(*sup_in, p),
             plain=lambda: support.support_scan(desc1, desc2, p),
-            nbytes=2 * Hc * W * 32 + 8 * Hc * W * 4, ops=support_ops()),
+            nbytes=B * (2 * Hc * W * 32 + 8 * Hc * W * 4),
+            ops=B * support_ops(p),
+            **singles(lambda a, b: support_cu.support_scan(a, b, p),
+                      desc1, desc2)),
         "matching_left": dict(
             kernel=lambda: matching_cu.match_keys(desc1, desc2, *maps_l,
                                                   gm_l, p, False),
@@ -211,7 +232,9 @@ def check_kernels(eng, p, left, right, card, mode) -> dict:
                                               p, False),
             plain=lambda: matching.match_keys(desc1, desc2, *maps_l, gm_l,
                                               p, False),
-            nbytes=match_bytes, ops=n_candidates(maps_l, gm_l, False) * 32),
+            nbytes=match_bytes, ops=candidates(maps_l, gm_l, False) * 32,
+            **singles(lambda *a: matching_cu.match_keys(*a, p, False),
+                      desc1, desc2, *maps_l, gm_l)),
         "matching_right": dict(
             kernel=lambda: matching_cu.match_keys(desc2, desc1, *maps_r,
                                                   gm_r, p, True),
@@ -219,66 +242,132 @@ def check_kernels(eng, p, left, right, card, mode) -> dict:
                                               p, True),
             plain=lambda: matching.match_keys(desc2, desc1, *maps_r, gm_r,
                                               p, True),
-            nbytes=match_bytes, ops=n_candidates(maps_r, gm_r, True) * 32),
+            nbytes=match_bytes, ops=candidates(maps_r, gm_r, True) * 32,
+            **singles(lambda *a: matching_cu.match_keys(*a, p, True),
+                      desc2, desc1, *maps_r, gm_r)),
         "lr_check": dict(
             kernel=lambda: lr_cu.lr_consistency_check(D1, D2, p),
             plain=lambda: postprocess.lr_consistency_check(D1, D2, p),
-            nbytes=4 * Ho * Wo * 4, ops=2 * Ho * Wo * 8),
+            nbytes=B * 4 * Ho * Wo * 4, ops=B * 2 * Ho * Wo * 8,
+            **singles(lambda a, b: lr_cu.lr_consistency_check(a, b, p),
+                      D1, D2)),
         "speckle_ccl": dict(
             kernel=lambda: ccl_cu.remove_small_segments(L1, p),
             plain=lambda: postprocess.remove_small_segments(L1, p),
-            nbytes=2 * Ho * Wo * 4, ops=Ho * Wo * 16),
+            nbytes=B * 2 * Ho * Wo * 4, ops=B * Ho * Wo * 16,
+            **singles(lambda d: ccl_cu.remove_small_segments(d, p), L1)),
     }
+    # a batch's plain versions loop over its frames: fewer repetitions
+    return run_checks(checks, card, mode, REPS if B == 1 else 3)
+
+
+def run_checks(checks, card, mode, plain_reps=REPS) -> dict:
+    """Each check's kernel against its plain version (exact) and, where it
+    has "singles", against that list of single-frame outputs; times by
+    CUDA events; returns the result lines by name."""
     results = {}
     for name, c in checks.items():
         k_out = c["kernel"]()
         torch.cuda.synchronize()
         p_out = c["plain"]()
         bad, err = compare(k_out, p_out)
-        r = dict(name=name, mode=mode, mismatches=bad, max_abs_err=err,
-                 ms=event_ms(c.get("launch", c["kernel"])),
+        r = dict(name=name, mode=mode, mismatches=bad, max_abs_err=err)
+        if "singles" in c:
+            outs = k_out if isinstance(k_out, tuple) else (k_out,)
+            r["frames_differing_from_single_launches"] = sum(
+                compare(tuple(o[i] for o in outs), single)[0] > 0
+                for i, single in enumerate(c["singles"]()))
+        r.update(ms=event_ms(c.get("launch", c["kernel"])),
                  wrapper_ms=event_ms(c["kernel"]),
-                 plain_ms=event_ms(c["plain"]), bytes=c["nbytes"],
-                 ops=c["ops"], card=card)
+                 plain_ms=event_ms(c["plain"], plain_reps),
+                 bytes=c["nbytes"], ops=c["ops"], card=card)
         r["bound_ms"], r["bound_by"] = bound_ms(c["nbytes"], c["ops"])
         results[name] = r
         print(json.dumps(r), flush=True)
         assert bad == 0, "%s (%s): kernel and plain version differ" % (
             name, mode)
+        assert not r.get("frames_differing_from_single_launches"), (
+            "%s (%s): the batched launch differs from single-frame launches"
+            % (name, mode))
     return results
 
 
-def drive_main_path(eng, calib, scenes, card, mode) -> dict:
-    """Phase 5 for one mode: process_frame over the frames after a
-    warm-up, launch counts, the CPU reference on frame 0, sanity on every
-    frame, stage times and a profile; returns the launch counts."""
-    from stereovision_tpu_torch.engine import StereoEngine, bgr_to_gray
+def support_ops(p) -> int:
+    """Least operations of one frame's support scan.  Both directions read
+    one table F(x, d) = SAD32(A(x), B(x - d)): forward Fg(u) = F(u-2) +
+    F(u+2) and backward Fg(u+d).  So each (row, x, d) that either
+    direction reads costs one SAD32 (32 abs-diffs, 32 adds), each Fg entry
+    one add, and each valid (u, d) of a direction one compare."""
+    u = np.arange(W)
+    per_row = 0
+    for d in range(max(p.disp_min, 0), p.disp_max + 1):
+        fwd = u[u >= d + 5]
+        bwd = u[u <= W - d - 5] + d
+        fg = np.union1d(fwd, bwd)
+        f = np.union1d(fg - 2, fg + 2)
+        per_row += 64 * f.size + fg.size + fwd.size + bwd.size
+    return -(-H // p.step) * per_row
+
+
+def n_candidates(p, maps, gm, right_image) -> int:
+    """Candidates this frame's data gives the matching pass: each output
+    pixel's cell bits and plane window, warp inside the row."""
+    from stereovision_tpu_torch.ops import matching
+    s = matching.lattice_step(p)
+    lo, hi = maps[0], maps[1]
+    Ho, Wo = lo.shape
+    gy = torch.arange(Ho, device=lo.device) * s // p.grid_size
+    gx = torch.arange(Wo, device=lo.device) * s // p.grid_size
+    uu = torch.arange(Wo, device=lo.device)[None, :] * s
+    n = 0
+    for d in range(p.disp_num):
+        uw = uu + d if right_image else uu - d
+        cand = ((gm[d][gy][:, gx] | ((d >= lo) & (d <= hi)))
+                & (uw >= 2) & (uw <= W - 3))
+        n += int(cand.sum())
+    return n
+
+
+def wrappers() -> dict:
     from stereovision_tpu_torch.ops.cuda import (ccl_cu, lr_cu, matching_cu,
                                                  support_cu)
+    return {"matching": matching_cu, "support": support_cu,
+            "lr_check": lr_cu, "speckle_ccl": ccl_cu}
+
+
+def zero_counts() -> None:
+    for m in wrappers().values():
+        m.launches = 0
+
+
+def read_counts() -> dict:
+    return {k: m.launches for k, m in wrappers().items()}
+
+
+def drive_main_path(eng, calib, scenes, card, mode):
+    """Phase 5 for one mode: process_frame over the frames after a
+    warm-up, launch counts, the CPU reference on frame 0, sanity on every
+    frame, stage times and a profile; returns the launch counts and the
+    frames' outputs."""
+    from stereovision_tpu_torch.engine import StereoEngine, bgr_to_gray
     elas = eng.elas
     Ho, Wo = elas.Ho, elas.Wo
     step = W // Wo
     eng.process_frame(scenes[0][0], scenes[0][1])
     torch.cuda.synchronize()
-    wrappers = {"matching": matching_cu, "support": support_cu,
-                "lr_check": lr_cu, "speckle_ccl": ccl_cu}
-    for m in wrappers.values():
-        m.launches = 0
+    zero_counts()
     outs, frame_s = [], []
     for lf, rf, _ in scenes[1:]:
         t = time.perf_counter()
         outs.append(eng.process_frame(lf, rf))
         frame_s.append(time.perf_counter() - t)
-    launches = {k: m.launches for k, m in wrappers.items()}
+    launches = read_counts()
     print(json.dumps({"main_path": {
         "mode": mode, "frames": FRAMES,
         "frame_ms": [1e3 * s for s in frame_s],
         "frame_ms_median": 1e3 * float(np.median(frame_s)),
         "launches": launches, "card": card}}), flush=True)
-    assert launches["matching"] == 2 * FRAMES, launches
-    assert launches["support"] == FRAMES, launches
-    assert launches["lr_check"] == FRAMES, launches
-    assert launches["speckle_ccl"] >= FRAMES, launches
+    assert launches == per_frame_counts(eng.p, FRAMES), launches
 
     for (lf, rf, truth), out in zip(scenes[1:], outs):
         D = out["disparity"].cpu().numpy()
@@ -310,7 +399,8 @@ def drive_main_path(eng, calib, scenes, card, mode) -> dict:
         t1 = time.perf_counter()
         g = elas.host_mid(dc)
         t2 = time.perf_counter()
-        D, _ = elas.stage_dense(d1, d2, *elas.geometry_to_device(g))
+        # the packed geometry, one upload, as process_frame sends it
+        D, _ = elas.stage_dense(d1, d2, *elas.upload_geometry(g))
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         dmap, pts = eng.reproject(D)
@@ -323,6 +413,96 @@ def drive_main_path(eng, calib, scenes, card, mode) -> dict:
                       "mode": mode, "card": card}), flush=True)
     print(json.dumps({"profile": profile_frames(eng, scenes[1:3]),
                       "mode": mode, "card": card}), flush=True)
+    return launches, outs
+
+
+def per_frame_counts(p, n: int) -> dict:
+    """Launches of n frames, or n batches, of the main path (K1: two
+    passes; the speckle filter on D1 only under postprocess_only_left)."""
+    return {"matching": 2 * n, "support": n, "lr_check": n,
+            "speckle_ccl": n * (1 if p.postprocess_only_left else 2)}
+
+
+def drive_streams(eng, scenes, outs, card, mode) -> dict:
+    """Phase 6's main paths for one mode: stream over the 8 frames, then
+    stream_batched at the mode's batch, each with the launch counts zeroed
+    just before and read just after; every streamed frame against its
+    process_frame output `outs`; frames/s; a profile of two batches.  Returns stream_batched's launch counts."""
+    B = BATCH[mode]
+    frames = [(lf, rf) for lf, rf, _ in scenes[1:]]
+
+    def seq(n):
+        return (frames[i % len(frames)] for i in range(n))
+
+    def same(got, i, what):
+        ref = outs[i % len(frames)]
+        assert np.array_equal(got["dmap"], ref["dmap"]), (what, i, "dmap")
+        assert np.array_equal(got["points"], ref["points"]), (
+            what, i, "points")
+
+    zero_counts()
+    t = time.perf_counter()
+    streamed = list(eng.stream(iter(frames)))
+    wall = time.perf_counter() - t
+    launches = read_counts()
+    assert len(streamed) == len(frames)
+    for i, got in enumerate(streamed):
+        same(got, i, "stream")
+    assert launches == per_frame_counts(eng.p, len(frames)), launches
+    print(json.dumps({"stream": {
+        "mode": mode, "frames": len(frames), "wall_s": wall,
+        "frames_per_s": len(frames) / wall, "launches": launches,
+        "equal_to_process_frame": "every frame, dmap and points bit for bit",
+        "card": card}}), flush=True)
+
+    run = dict(batch=B, fetch="host", pipeline_depth=3,
+               host_workers="process")
+    t = time.perf_counter()
+    warm = list(eng.stream_batched(seq(2 * B), **run))
+    warm_s = time.perf_counter() - t
+    assert len(warm) == 2 * B
+    n = STREAM_BATCHES * B + 3           # a short, padded last batch
+    n_batches = -(-n // B)
+    torch.cuda.synchronize()
+    zero_counts()
+    stamps, got = [], []
+    t0 = time.perf_counter()
+    for out in eng.stream_batched(seq(n), **run):
+        stamps.append(time.perf_counter())
+        got.append(out)
+    launches = read_counts()
+    assert eng.host_mode == "process" and eng.elas._host_pool is not None, (
+        "the host middle did not run in the process pool")
+    assert len(got) == n
+    for i, out in enumerate(got):
+        same(out, i, "stream_batched")
+    assert launches == per_frame_counts(eng.p, n_batches), launches
+    # frames/s: the whole run's; beside it bench.py's protocol, WINDOWS
+    # batch-aligned windows of the stream (a batch's frames arrive in one
+    # burst) and their median
+    seg = max((n // WINDOWS) // B * B, B)
+    windows = []
+    for k in range(WINDOWS):
+        lo, hi = k * seg, min((k + 1) * seg, n) - 1
+        if lo >= n or hi <= lo:
+            continue
+        t_lo = t0 if lo == 0 else stamps[lo - 1]
+        windows.append((hi - lo + 1) / (stamps[hi] - t_lo))
+    print(json.dumps({"stream_batched": {
+        "mode": mode, "batch": B, "pipeline_depth": 3,
+        "host_workers": eng.host_mode, "fetch": "host", "frames": n,
+        "batches": n_batches, "warmup_s": warm_s,
+        "frames_per_s": n / (stamps[-1] - t0),
+        "window_frames_per_s": windows,
+        "window_median_frames_per_s": float(np.median(windows)),
+        "launches": launches,
+        "equal_to_process_frame": "every frame, dmap and points bit for bit",
+        "card": card}}), flush=True)
+
+    prof = profile(lambda: list(eng.stream_batched(seq(2 * B), **run)))
+    print(json.dumps({"profile": dict(frames=2 * B, path="stream_batched",
+                                      **prof), "mode": mode, "card": card}),
+          flush=True)
     return launches
 
 
@@ -381,17 +561,24 @@ def main() -> int:
     left, right, _ = stereo_pair(W, H, seed=0)
     scenes = [stereo_pair(W, H, seed=s) for s in range(1, FRAMES + 2)]
 
-    # 4-5. each mode: kernels against their plain versions, the main path
+    # 4-6. each mode: kernels against their plain versions, the main
+    # path, the kernels' batched modes, the streaming paths
     rows = []
     for mode, suffix, p in (("full", "", app_params()),
                             ("subsampled", "_subsampled",
                              app_params(subsampling=True))):
-        eng = StereoEngine(calib, W, H, params=p)
-        results = check_kernels(eng, p, left, right, card, mode)
-        launches = drive_main_path(eng, calib, scenes, card, mode)
+        with StereoEngine(calib, W, H, params=p) as eng:
+            results = check_kernels(eng, p, [(left, right)], card, mode)
+            launches, outs = drive_main_path(eng, calib, scenes, card, mode)
+            B = BATCH[mode]
+            batched = check_kernels(
+                eng, p, [(lf, rf) for lf, rf, _ in scenes[:B]], card,
+                "%s, batch %d" % (mode, B))
+            launches_b = drive_streams(eng, scenes, outs, card, mode)
         rows += kernel_rows(results, launches, suffix)
+        rows += kernel_rows(batched, launches_b, "_batched" + suffix)
 
-    # 6. summary lines
+    # 7. summary lines
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

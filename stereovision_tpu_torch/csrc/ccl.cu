@@ -1,8 +1,10 @@
-// K3: speckle removal by connected-component labelling.
+// K3: speckle removal by connected-component labelling, one frame or a
+// batch of frames a launch sequence.
 //
 // Replaces the Pallas kernel stereovision_tpu/ops/pallas/ccl_pl.py:82
-// (_kernel with _segmented_min_sweep :51; host loops _fixpoint :174,
-// _converge :237, _banded_labels :260, _merge_bands :342,
+// (_kernel with _segmented_min_sweep :51, its batched mode :84, :121
+// through the _fixpoint custom_vmap rule :192-215; host loops _fixpoint
+// :174, _converge :237, _banded_labels :260, _merge_bands :342,
 // remove_small_segments :384).  It computes the same partition: valid
 // pixels (D >= 0) joined to their 4-neighbours when |D - D_nb| <= thr in
 // float32 (ccl_pl.py:435-448); every pixel of a component smaller than
@@ -22,7 +24,10 @@
 // (threshold by the root's count).  Kernel boundaries are the only global
 // barriers it needs, where the TPU kernel iterated directional min-sweeps
 // to a fixpoint (~40 rounds on KITTI frames).  Parent reads bypass L1
-// (__ldcg), so a thread sees the roots other SMs have just written.
+// (__ldcg), so a thread sees the roots other SMs have just written.  A
+// batch of B frames is one (B H, W) label buffer whose labels index the
+// whole buffer (3.7 M at B = 8, KITTI size); no merge crosses a frame's
+// last row, so roots, and the per-root sizes, never cross frames.
 
 #include <cuda_runtime.h>
 
@@ -62,12 +67,13 @@ __global__ void ccl_init(int n, int* __restrict__ L) {
     if (i < n) L[i] = i;
 }
 
+// blockIdx.y = b H + v: row v of frame b.
 __global__ void ccl_merge(const float* __restrict__ D, int H, int W,
                           float thr, int* L) {
     const int u = blockIdx.x * blockDim.x + threadIdx.x;
-    const int v = blockIdx.y;
+    const int v = blockIdx.y % H;
     if (u >= W) return;
-    const int i = v * W + u;
+    const int i = blockIdx.y * W + u;
     const float d = D[i];
     if (u + 1 < W && connected(d, D[i + 1], thr)) unite(L, i, i + 1);
     if (v + 1 < H && connected(d, D[i + W], thr)) unite(L, i, i + W);
@@ -91,17 +97,18 @@ __global__ void ccl_apply(const float* __restrict__ D,
 
 }  // namespace
 
-// labels, size: (H*W,) int32 scratch, size zeroed by the caller.
-extern "C" int svtt_speckle(const void* D, int H, int W, float thr,
-                            int speckle, void* labels, void* size, void* out,
-                            void* stream) {
+// D, out: `frames` H x W maps; labels, size: (frames*H*W,) int32 scratch,
+// size zeroed by the caller.
+extern "C" int svtt_speckle(const void* D, int frames, int H, int W,
+                            float thr, int speckle, void* labels, void* size,
+                            void* out, void* stream) {
     const cudaStream_t s = (cudaStream_t)stream;
-    const int n = H * W;
+    const int n = frames * H * W;
     const int flat = (n + 255) / 256;
     int* L = (int*)labels;
     ccl_init<<<flat, 256, 0, s>>>(n, L);
-    ccl_merge<<<dim3((W + 127) / 128, H), 128, 0, s>>>((const float*)D, H, W,
-                                                        thr, L);
+    ccl_merge<<<dim3((W + 127) / 128, frames * H), 128, 0, s>>>(
+        (const float*)D, H, W, thr, L);
     ccl_resolve<<<flat, 256, 0, s>>>(n, L, (int*)size);
     ccl_apply<<<flat, 256, 0, s>>>((const float*)D, L, (const int*)size, n,
                                    speckle, (float*)out);

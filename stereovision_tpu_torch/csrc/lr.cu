@@ -1,9 +1,10 @@
 // K4: left/right consistency check, at full resolution and on the half
-// lattice.
+// lattice, one frame or a batch of frames a launch.
 //
 // Replaces the Pallas kernel stereovision_tpu/ops/pallas/lr_pl.py:36
-// (_kernel, both modes: the half warp of sub=True :50-55; wrapper
-// lr_consistency_check :122): a D1 pixel is kept iff
+// (_kernel, both modes: the half warp of sub=True :50-55; the batched
+// mode :38-43, :76-81, reached through the custom_vmap rule :145-160;
+// wrapper lr_consistency_check :122): a D1 pixel is kept iff
 // |D2[trunc(u - s d)] - d| <= thr, a D2 pixel iff |D1[trunc(u + s d)] - d|
 // <= thr, and becomes -10 otherwise or when the warped column leaves the
 // row; s is 1, or 0.5 on the half lattice, whose maps hold full-resolution
@@ -16,7 +17,8 @@
 // KITTI size), a handful of operations each.  Design: one thread a pixel
 // and a direct gather from the other map's row, which the L1 cache serves.
 // The TPU kernel's loop over every disparity value (one lane roll per d,
-// written to avoid gathers) has no counterpart.
+// written to avoid gathers) has no counterpart.  Rows are independent, so
+// a batch folds its frames into the row axis (blockIdx.y = b H + v).
 
 #include <cuda_runtime.h>
 
@@ -51,12 +53,13 @@ __global__ void lr_check_kernel(const float* __restrict__ D1,
 
 }  // namespace
 
-// scale: column warp per unit of disparity (1, or 0.5 on the half lattice).
-extern "C" int svtt_lr_check(const void* D1, const void* D2, int H, int W,
-                             float scale, float thr, void* O1, void* O2,
-                             void* stream) {
+// `frames` H x W maps each; scale: column warp per unit of disparity (1, or
+// 0.5 on the half lattice).
+extern "C" int svtt_lr_check(const void* D1, const void* D2, int frames,
+                             int H, int W, float scale, float thr, void* O1,
+                             void* O2, void* stream) {
     const dim3 block(128);
-    const dim3 grid((W + 127) / 128, H);
+    const dim3 grid((W + 127) / 128, frames * H);
     lr_check_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
         (const float*)D1, (const float*)D2, W, scale, thr, (float*)O1,
         (float*)O2);

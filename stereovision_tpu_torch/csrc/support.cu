@@ -1,7 +1,9 @@
 // K2: support-point matching scan.
 //
 // Replaces the Pallas kernel stereovision_tpu/ops/pallas/support_pl.py:50
-// (_kernel, wrappers support_matches :211 and _support_scan :146).  It
+// (_kernel, wrappers support_matches :211 and _support_scan :146; the
+// batched mode's leading grid axis :52, :61, reached through the
+// custom_vmap rule :168-200: here a third grid axis, one frame each).  It
 // computes what that kernel computes: on every candidate row (rows v-2 and
 // v+2 of v = step * k, 32 descriptor bytes per column) and every column u,
 // for d ascending over [d_lo, d_hi], the best and second-best (energy, d)
@@ -68,16 +70,18 @@ __device__ __forceinline__ void keep_two(int cost, int d, int& e1, int& d1,
     }
 }
 
-// A, B: (Hc, W, 32) uint8 as (Hc, W, 2) uint4.  out: (8, Hc, W) int32.
+// Per frame b = blockIdx.z: A, B: (Hc, W, 32) uint8 as (Hc, W, 2) uint4;
+// out: (8, Hc, W) int32.
 __global__ void support_scan_kernel(const uint4* __restrict__ A,
                                     const uint4* __restrict__ B, int Hc,
                                     int W, int d_lo, int d_hi,
                                     int* __restrict__ out) {
     const int u = blockIdx.x * blockDim.x + threadIdx.x;
     const int r = blockIdx.y;
+    const size_t b = blockIdx.z;
     if (u >= W) return;
-    const uint4* Arow = A + (size_t)r * W * 2;
-    const uint4* Brow = B + (size_t)r * W * 2;
+    const uint4* Arow = A + (b * Hc + r) * W * 2;
+    const uint4* Brow = B + (b * Hc + r) * W * 2;
     const Desc32 a_m = load32(Arow, u - 2, W);
     const Desc32 a_p = load32(Arow, u + 2, W);
     const Desc32 b_m = load32(Brow, u - 2, W);
@@ -99,6 +103,7 @@ __global__ void support_scan_kernel(const uint4* __restrict__ A,
         }
     }
     const size_t plane = (size_t)Hc * W;
+    out += b * 8 * plane;
     const size_t i = (size_t)r * W + u;
     out[i] = f1e;
     out[plane + i] = f1d;
@@ -112,11 +117,11 @@ __global__ void support_scan_kernel(const uint4* __restrict__ A,
 
 }  // namespace
 
-extern "C" int svtt_support_scan(const void* A, const void* B, int Hc, int W,
-                                 int d_lo, int d_hi, void* out,
+extern "C" int svtt_support_scan(const void* A, const void* B, int frames,
+                                 int Hc, int W, int d_lo, int d_hi, void* out,
                                  void* stream) {
     const dim3 block(128);
-    const dim3 grid((W + 127) / 128, Hc);
+    const dim3 grid((W + 127) / 128, Hc, frames);
     support_scan_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
         (const uint4*)A, (const uint4*)B, Hc, W, d_lo, d_hi, (int*)out);
     return (int)cudaGetLastError();

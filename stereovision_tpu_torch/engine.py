@@ -1,27 +1,43 @@
 """StereoEngine: calibrated frames -> disparity + point cloud, with the
-reference application's output conventions (counterpart of
-stereovision_tpu/engine.py:36-225).
+reference application's output conventions, and two streaming modes
+(counterpart of stereovision_tpu/engine.py:36-488).
 
   generateDisparityMap  stereo_vision.cpp:296-318 (disparity stored as
                         uint8 = 4x true disparity)
   publishPointCloud     stereo_vision.cpp:222-280 (Q reprojection of the
                         *uint8* disparity)
+
+process_frame is one blocking frame.  stream overlaps frames with a
+lookahead of stage A; stream_batched runs batches of frames, each kernel
+launched once a batch, through a prefetch thread, `pipeline_depth` tail
+workers and a spawn process pool for the host middle.  On the card every
+thread of the pipeline launches on a CUDA stream of its own; a tensor made
+on one thread's stream and read on another's is ordered by an event and
+kept from reuse by record_stream.
 """
 
 from __future__ import annotations
 
+import collections
+import threading
 import time
-from typing import Dict, Optional
+import warnings
+from concurrent.futures import wait as futures_wait
+from concurrent.futures.process import BrokenProcessPool
+from typing import Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .device import resolve_device
+from .hostlib.geometry import host_mid_standalone
 from .io.calibration import Rectification, rectification_from_yaml
 from .models.elas import ElasEngine
 from .ops.reproject import (apply_robot_transform, linear_taps, reproject,
                             resize_linear)
 from .params import ElasParams, app_params
+from .transfer import fetch as to_host
+from .transfer import upload
 
 
 def bgr_to_gray(img: np.ndarray) -> np.ndarray:
@@ -72,34 +88,92 @@ class StereoEngine:
         self.robot_frame = robot_frame
         self.timings: Dict[str, float] = {}
         self._pc_taps: Dict[tuple, tuple] = {}
+        self._lock = threading.Lock()
+        self._executors = None
+        # how the last stream_batched ran its host middle: "process" or,
+        # where the pool's processes could not start, "thread"
+        self.host_mode: Optional[str] = None
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def _get_executors(self, batch: int, pipeline_depth: int):
+        """Engine-owned thread pools of stream_batched, made on first use and
+        reused across calls: host-middle threads, `pipeline_depth` tail
+        workers and one prefetch thread.  On the card each tail worker and
+        the prefetch thread launch on a CUDA stream of their own."""
+        import concurrent.futures as cf
+        need = max(pipeline_depth, 1)
+        if self._executors is not None and self._executors[3] < need:
+            for e in self._executors[:3]:
+                e.shutdown(wait=False, cancel_futures=True)
+            self._executors = None
+        if self._executors is None:
+            own = dict(initializer=_own_stream, initargs=(self.device,))
+            self._executors = (
+                cf.ThreadPoolExecutor(max_workers=min(max(batch, 1), 8)),
+                cf.ThreadPoolExecutor(max_workers=need, **own),
+                cf.ThreadPoolExecutor(max_workers=1, **own),
+                need)
+        return self._executors[:3]
+
+    def close(self):
+        """Release the worker threads and the host geometry processes.
+        Idempotent; the engine stays usable (pools are made again on
+        demand)."""
+        if self._executors is not None:
+            for e in self._executors[:3]:
+                e.shutdown(wait=True, cancel_futures=True)
+            self._executors = None
+        self.elas.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
 
     def pc_taps(self, shape) -> tuple:
         """The resize's tap tables (rows, cols) from a dmap of this shape
         to the cloud's (pc_h, pc_w), None for an axis that keeps its size;
-        made once a shape, on the engine's device."""
-        if shape not in self._pc_taps:
-            self._pc_taps[shape] = tuple(
-                linear_taps(n, m, self.device) if n != m else None
-                for n, m in zip(shape, (self.pc_h, self.pc_w)))
+        made once a shape, on the engine's device, for every thread."""
+        with self._lock:
+            if shape not in self._pc_taps:
+                taps = tuple(linear_taps(n, m, self.device) if n != m
+                             else None
+                             for n, m in zip(shape, (self.pc_h, self.pc_w)))
+                if self.device.type == "cuda":
+                    # other threads' streams read the tables unordered
+                    torch.cuda.current_stream().synchronize()
+                self._pc_taps[shape] = taps
         return self._pc_taps[shape]
 
     def reproject(self, D1: torch.Tensor):
-        """D1 -> (dmap (Ho, Wo) uint8 display disparity, points
-        (pc_h, pc_w, 3) float32), both on D1's device."""
+        """D1 (..., Ho, Wo) -> (dmap (..., Ho, Wo) uint8 display disparity,
+        points (..., pc_h, pc_w, 3) float32), both on D1's device."""
         dmap = torch.clamp(torch.round(D1 * self.disp_display_scale),
                            0, 255).to(torch.uint8)
         if self.remove_sky:
             # zero disparity above ~55% height (reference remove_sky,
             # stereo_vision.cpp:484-490: mask rows [0, H/2*1.1))
-            dmap[:int(dmap.shape[0] // 2 * 1.1)] = 0
+            dmap[..., :int(dmap.shape[-2] // 2 * 1.1), :] = 0
         d_for_q = resize_linear(dmap.to(torch.float32),
-                                *self.pc_taps(tuple(dmap.shape)))
+                                *self.pc_taps(tuple(dmap.shape[-2:])))
         if self.true_scale_cloud:
             d_for_q = d_for_q / self.disp_display_scale
         points = reproject(d_for_q, self.rect.Q)
         if self.robot_frame:
             points = apply_robot_transform(points, self.rect.XR, self.rect.XT)
         return dmap, points
+
+    def _run_dense(self, desc1, desc2, g):
+        """Stage B and the frame tail from host_mid products: the packed
+        geometry goes up in one copy.  -> (D1, dmap, points (pc_h, pc_w,
+        3))."""
+        D1, _ = self.elas.stage_dense(desc1, desc2,
+                                      *self.elas.upload_geometry(g))
+        dmap, points = self.reproject(D1)
+        return D1, dmap, points
 
     def process_frame(self, left: np.ndarray, right: np.ndarray,
                       fetch: str = "host") -> Dict:
@@ -110,22 +184,251 @@ class StereoEngine:
         fetch: "host" copies dmap and points to NumPy; "dmap" copies only
         the display disparity and leaves the cloud on the device; "device"
         leaves everything on the device."""
-        if fetch not in ("host", "dmap", "device"):
-            raise ValueError("fetch must be 'host', 'dmap' or 'device'")
+        _check_fetch(fetch)
         t0 = time.perf_counter()
         desc1, desc2, d_can = self.elas.stage_support(bgr_to_gray(left),
                                                       bgr_to_gray(right))
-        g = self.elas.host_mid(d_can.cpu().numpy())
-        D1, _ = self.elas.stage_dense(desc1, desc2,
-                                      *self.elas.geometry_to_device(g))
-        dmap, points = self.reproject(D1)
+        g = self.elas.host_mid(to_host(d_can))
+        D1, dmap, points = self._run_dense(desc1, desc2, g)
         points = points.reshape(-1, 3)
         if fetch in ("host", "dmap"):
-            dmap = dmap.cpu().numpy()
+            dmap = to_host(dmap)
         tq = time.perf_counter()
         if fetch == "host":
-            points = points.cpu().numpy()
+            points = to_host(points)
         t1 = time.perf_counter()
         self.timings = {"t_t": t1 - t0, "dmap_t": tq - t0, "pc_t": t1 - tq}
         return {"dmap": dmap, "disparity": D1, "points": points,
                 "timings": dict(self.timings)}
+
+    # -- pipelined streaming path -------------------------------------------
+
+    def stream(self, frames: Iterable[Tuple[np.ndarray, np.ndarray]],
+               lookahead: int = 2, fetch: str = "host") -> Iterator[Dict]:
+        """Process a stream of (left, right) frames with a software
+        pipeline: stage A of the next frames is enqueued ahead, so the
+        host middle of frame i overlaps the device's work on the frames
+        around it.  Yields {"dmap" (NumPy), "points" ((pc_h*pc_w, 3) NumPy
+        under fetch="host", else the (pc_h, pc_w, 3) tensor), "timings"}
+        per frame, in order."""
+        _check_fetch(fetch)
+        frames = iter(frames)
+        q = collections.deque()
+
+        def dispatch_a():
+            try:
+                lf, rf = next(frames)
+            except StopIteration:
+                return False
+            t0 = time.perf_counter()
+            q.append((t0, self.elas.stage_support(bgr_to_gray(lf),
+                                                  bgr_to_gray(rf))))
+            return True
+
+        for _ in range(lookahead):
+            if not dispatch_a():
+                break
+        while q:
+            t0, (desc1, desc2, d_can) = q.popleft()
+            g = self.elas.host_mid(to_host(d_can))
+            _, dmap_dev, points_dev = self._run_dense(desc1, desc2, g)
+            dispatch_a()
+            dmap = to_host(dmap_dev)
+            tq = time.perf_counter()
+            points = points_dev
+            if fetch == "host":
+                points = to_host(points_dev).reshape(-1, 3)
+            t1 = time.perf_counter()
+            # dmap_t: until the display disparity reached the host; pc_t:
+            # the cloud's fetch after it (reference stereo_vision.cpp:682)
+            self.timings = {"t_t": t1 - t0, "dmap_t": tq - t0,
+                            "pc_t": t1 - tq}
+            yield {"dmap": dmap, "points": points,
+                   "timings": dict(self.timings)}
+
+    # -- batched throughput path --------------------------------------------
+
+    def stream_batched(self, frames: Iterable[Tuple[np.ndarray, np.ndarray]],
+                       batch: int = 4, fetch: str = "dmap",
+                       pipeline_depth: int = 2,
+                       host_workers: str = "process") -> Iterator[Dict]:
+        """Throughput mode: frames in batches of `batch`, each kernel
+        launched once a batch (K1 once a pass).  The stages of a batch run
+        on a tail worker, `pipeline_depth` batches in flight: support grid
+        fetch -> host middle (host_workers="process": the engine's spawn
+        pool, falling back to threads where the pool's processes cannot
+        start; "thread": threads) -> one packed geometry upload -> stage B
+        and the frame tail -> output fetch.  Gray conversion, the image
+        upload and stage A of the next batches run on a prefetch thread.
+        A short last batch is padded with its last frame.  host_mode
+        records how the host middle of the last call ran.
+
+        Yields {"dmap", "points", "timings"} per frame, in order: fetch
+        "host" gives NumPy dmap and (pc_h*pc_w, 3) points, "dmap" NumPy
+        dmap and the (pc_h, pc_w, 3) tensor, "device" both tensors."""
+        _check_fetch(fetch)
+        if host_workers not in ("process", "thread"):
+            raise ValueError("host_workers must be 'process' or 'thread'")
+        ex, workers, prefetch = self._get_executors(batch, pipeline_depth)
+        it = iter(frames)
+        pending = collections.deque()
+        cuda = self.device.type == "cuda"
+        # this call's host-middle mode; only the caller's thread publishes it
+        host_mode = {"mode": host_workers}
+
+        def next_batch():
+            fs = []
+            for _ in range(batch):
+                try:
+                    fs.append(next(it))
+                except StopIteration:
+                    break
+            if not fs:
+                return None
+            n_real = len(fs)
+            while len(fs) < batch:      # pad a short tail batch
+                fs.append(fs[-1])
+            pairs = np.stack([[bgr_to_gray(lf), bgr_to_gray(rf)]
+                              for lf, rf in fs])      # (B, 2, H, W): 1 H2D
+            t0 = time.perf_counter()
+            pairs = upload(pairs, self.device)
+            out = self.elas.stage_support_batched(pairs)
+            return t0, n_real, out, _record(cuda)
+
+        def host_middle(d_cans):
+            dcs = [d_cans[i] for i in range(d_cans.shape[0])]
+            if host_mode["mode"] == "process":
+                try:
+                    return self.elas.host_mid_parallel(dcs)
+                except (BrokenProcessPool, OSError) as err:
+                    # the pool's processes could not start (a spawned
+                    # process re-imports the main script, which fails
+                    # where it lacks an `if __name__ == "__main__"` guard):
+                    # threads from here on; a fault of the host middle
+                    # itself propagates
+                    warnings.warn("host geometry process pool failed (%r); "
+                                  "running the host middle on threads"
+                                  % (err,))
+                    host_mode["mode"] = "thread"
+            args = self.elas.host_args
+            return list(ex.map(lambda dc: host_mid_standalone(dc, *args),
+                               dcs))
+
+        def run_tail(entry):
+            t0, n, out, ready = entry
+            _wait(cuda, ready, out)
+            desc1, desc2, d_can = out
+            gs = host_middle(to_host(d_can))
+            msgs = [m for g in gs for m in g["warnings"]]
+            buf = upload(np.stack([self.elas.pack_geometry(g) for g in gs]),
+                         self.device)                   # 1 H2D
+            D1, _ = self.elas.stage_dense_batched(desc1, desc2, buf)
+            dmap, points = self.reproject(D1)
+            if fetch in ("host", "dmap"):
+                dmap = to_host(dmap)
+            t_dmap = time.perf_counter()
+            if fetch == "host":
+                points = to_host(points)
+            elif cuda:
+                torch.cuda.current_stream().synchronize()
+            return t0, n, dmap, points, t_dmap, msgs
+
+        def emit(done):
+            t0, n, dmaps, points, t_dmap, msgs = done
+            for m in msgs:
+                # captured in the host workers (support thinning, span
+                # overflow): re-emitted on the caller's side
+                warnings.warn("host geometry worker: " + m)
+            # tensors made on a worker's stream, read on the caller's
+            _wait(cuda, None, (dmaps, points))
+            t1 = time.perf_counter()
+            # per frame: dmap_t until the batch's display disparities
+            # reached the host, pc_t the cloud's fetch after it
+            per, dmap_per, pc_per = ((t1 - t0) / n, (t_dmap - t0) / n,
+                                     (t1 - t_dmap) / n)
+            for i in range(n):
+                self.timings = {"t_t": per, "dmap_t": dmap_per,
+                                "pc_t": pc_per}
+                yield {"dmap": dmaps[i],
+                       "points": (points[i].reshape(-1, 3)
+                                  if fetch == "host" else points[i]),
+                       "timings": dict(self.timings)}
+
+        # stage A of the next batches on the prefetch thread (two ahead),
+        # `pipeline_depth` tails in flight, frames yielded in order
+        state = {"exhausted": False}
+
+        def pump_a():
+            e = next_batch()
+            if e is None:
+                state["exhausted"] = True
+            return e
+
+        a_futs = collections.deque()
+
+        def submit_a():
+            if not state["exhausted"]:
+                a_futs.append(prefetch.submit(pump_a))
+
+        for _ in range(2):
+            submit_a()
+        try:
+            while a_futs or pending:
+                while a_futs and len(pending) < max(pipeline_depth, 1):
+                    e = a_futs.popleft().result()
+                    submit_a()
+                    if e is not None:
+                        pending.append(workers.submit(run_tail, e))
+                if pending:
+                    yield from emit(pending.popleft().result())
+        finally:
+            self.host_mode = host_mode["mode"]
+            if host_mode["mode"] != host_workers:
+                # the broken pool goes once the call's batches are done;
+                # the next call makes a new one
+                for f in pending:
+                    f.cancel()
+                futures_wait(pending)
+                self.elas.close()
+
+
+def _check_fetch(fetch: str) -> None:
+    if fetch not in ("host", "dmap", "device"):
+        raise ValueError("fetch must be 'host', 'dmap' or 'device'")
+
+
+def _own_stream(device: torch.device) -> None:
+    """Thread initializer: on the card, give the thread a CUDA stream of
+    its own (the current stream is per thread)."""
+    if device.type == "cuda":
+        torch.cuda.set_stream(torch.cuda.Stream(device))
+
+
+def _record(cuda: bool):
+    """An event at the end of the current stream's work so far (None off
+    the card)."""
+    if not cuda:
+        return None
+    ev = torch.cuda.Event()
+    ev.record()
+    return ev
+
+
+def _wait(cuda: bool, event, tensors) -> None:
+    """Order the current stream after `event` (if any), and mark the
+    tensors in `tensors` (nested tuples) as used on it, so that the
+    allocator of the stream that made them does not hand their memory out
+    while this stream may still read it."""
+    if not cuda:
+        return
+    stream = torch.cuda.current_stream()
+    if event is not None:
+        stream.wait_event(event)
+    todo = [tensors]
+    while todo:
+        x = todo.pop()
+        if torch.is_tensor(x):
+            if x.device.type == "cuda":
+                x.record_stream(stream)
+        elif isinstance(x, (tuple, list)):
+            todo.extend(x)

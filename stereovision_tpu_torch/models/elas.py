@@ -1,10 +1,11 @@
 """The ELAS stereo pipeline in PyTorch (counterpart of
-stereovision_tpu/models/elas.py:40-93,112-395).
+stereovision_tpu/models/elas.py:40-395).
 
 Structure:
   stage A      descriptors + support scan (K2)          device
   host middle  sequential support filters, Delaunay,    host (NumPy/SciPy,
-               rasterization, span coding               C++ helpers)
+               rasterization, span coding               C++ helpers;
+                                                        hostlib/geometry.py)
   stage B      plane fit, span expansion, grid masks,   device
                matching x2 (K1), L/R check (K4),
                speckle (K3), gap interpolation,
@@ -15,25 +16,34 @@ wrapper picks the kernel or its plain version from the device its tensors
 live on.  Under subsampling (params.subsampling) stage A is unchanged (full
 resolution, candidate step forced even) and stage B runs on the
 (H//2, W//2) output lattice.
+
+Both device stages take one frame or a batch (a leading batch dimension),
+and give each frame its single-frame result: stage_support_batched takes
+(B, 2, H, W) image pairs, stage_dense_batched the (B, nbytes) packed
+geometry (pack_geometry: one upload a batch).  The host middle runs frame
+by frame, in a spawn process pool for the streaming paths (host_pool).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import functools
+import threading
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..convert import geometry_to_torch
 from ..device import resolve_device
-from ..hostlib.raster import filter_support_sequential, rasterize
+from ..hostlib import geometry
+from ..hostlib.geometry import _pool_host_mid, _pool_init
 from ..ops import postprocess as post
 from ..ops.cuda import ccl_cu, lr_cu, matching_cu, support_cu
 from ..ops.descriptor import compute_descriptor
 from ..ops.grid import build_grid_mask
-from ..ops.planes import fit_plane_tables, host_geometry
-from ..ops.spans import encode_tri_spans, expand_tri_spans
+from ..ops.planes import fit_plane_tables
+from ..ops.spans import expand_tri_spans
 from ..params import ElasParams
+from ..transfer import upload
 
 
 class ElasEngine:
@@ -55,6 +65,54 @@ class ElasEngine:
         # runs per span-coded row are set by triangle-edge crossings, which
         # the half lattice keeps: the cap follows the full width
         self.s_max = max(64, min(self.width // 4, self.Wo))
+        self._host_pool = None
+        self._pool_lock = threading.Lock()
+
+    # ---- lifecycle ----------------------------------------------------------
+
+    def close(self):
+        """Shut down the host geometry process pool (reference clean(),
+        stereo_vision.cpp:105-114).  Idempotent; the pool is made again on
+        demand."""
+        with self._pool_lock:
+            pool, self._host_pool = self._host_pool, None
+        if pool is not None:
+            pool.shutdown(wait=True, cancel_futures=True)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+    @property
+    def host_args(self) -> tuple:
+        """host_mid_standalone's arguments after d_can."""
+        return (self.p, self.width, self.height, self.n_max, self.t_max,
+                self.s_max)
+
+    def host_pool(self, workers: int = 4):
+        """Process pool running the host middle free of the GIL (scipy's
+        Delaunay holds it, so threads barely scale).  Spawn, never fork:
+        the parent holds a CUDA context, which a forked child must not
+        inherit.  The workers import hostlib.geometry and no torch."""
+        with self._pool_lock:
+            if self._host_pool is None:
+                import concurrent.futures as cf
+                import multiprocessing as mp
+                self._host_pool = cf.ProcessPoolExecutor(
+                    max_workers=workers, mp_context=mp.get_context("spawn"),
+                    initializer=_pool_init,
+                    initargs=self.host_args + (True,))
+            return self._host_pool
+
+    def host_mid_parallel(self, d_cans: Sequence[np.ndarray],
+                          workers: int = 4):
+        """host_mid_standalone over a batch of support grids in the pool's
+        worker processes, in order."""
+        pool = self.host_pool(workers)
+        return list(pool.map(_pool_host_mid, list(d_cans)))
 
     # ---- device stage A ---------------------------------------------------
 
@@ -62,10 +120,19 @@ class ElasEngine:
         """(H, W) uint8 gray images (NumPy or tensors) -> (desc1, desc2,
         d_can) on the engine's device; d_can is the raw (Hc, Wc) int16
         support grid (the host applies the sequential filters)."""
-        I1 = torch.as_tensor(I1, device=self.device)
-        I2 = torch.as_tensor(I2, device=self.device)
-        desc1 = compute_descriptor(I1)
-        desc2 = compute_descriptor(I2)
+        desc1 = compute_descriptor(upload(I1, self.device))
+        desc2 = compute_descriptor(upload(I2, self.device))
+        d_can = support_cu.support_matches(desc1, desc2, self.p,
+                                           apply_filters=False)
+        return desc1, desc2, d_can
+
+    def stage_support_batched(self, pairs):
+        """(B, 2, H, W) uint8 gray image pairs (NumPy or a tensor) ->
+        (desc1, desc2, d_can) with a leading batch dimension: one launch
+        of K2 for the batch."""
+        desc = compute_descriptor(upload(pairs, self.device))
+        desc1 = desc[:, 0].contiguous()
+        desc2 = desc[:, 1].contiguous()
         d_can = support_cu.support_matches(desc1, desc2, self.p,
                                            apply_filters=False)
         return desc1, desc2, d_can
@@ -76,30 +143,62 @@ class ElasEngine:
         """Support grid -> padded geometry arrays (fixed shapes): pts
         (n_max, 3) int16, tris_l/r (t_max, 3) int16 and the triangle-id
         maps on the output lattice as span codes tri_l/r (Ho, s_max, 3)
-        uint8."""
-        d_can = filter_support_sequential(np.asarray(d_can), self.p)
-        g = host_geometry(d_can, self.p, self.width, self.height,
-                          rasterize=rasterize, n_cap=self.n_max)
-        pts = np.full((self.n_max, 3), -1, np.int16)
-        n = min(len(g["pts"]), self.n_max)
-        pts[:n] = g["pts"][:n]
-        out = {"pts": pts}
-        for tag in ("l", "r"):
-            tr = np.full((self.t_max, 3), -1, np.int16)
-            t = min(len(g["tris_" + tag]), self.t_max)
-            tr[:t] = g["tris_" + tag][:t]
-            out["tris_" + tag] = tr
-            tri = np.where(g["tri_id_" + tag] >= self.t_max, -1,
-                           g["tri_id_" + tag])
-            if self.p.subsampling:
-                tri = tri[::2, ::2][:self.Ho, :self.Wo]
-            out["tri_" + tag] = encode_tri_spans(tri, self.s_max)
-        return out
+        uint8 (hostlib.geometry.host_mid)."""
+        return geometry.host_mid(d_can, *self.host_args)
 
-    def geometry_to_device(self, g: Dict[str, np.ndarray]):
-        """host_mid products -> (pts, tris_l, tris_r, tri_l, tri_r) tensors
-        on the engine's device."""
-        return tuple(geometry_to_torch(g, self.device).values())
+    # ---- packed geometry transport -----------------------------------------
+    #
+    # The five geometry arrays of a frame travel as ONE uint8 buffer, laid
+    # out byte for byte as the JAX package's (models/elas.py:262-296): one
+    # host-to-device copy a frame, or a batch, instead of five.
+
+    @functools.cached_property
+    def _geo_layout(self):
+        segs = [("pts", (self.n_max, 3), np.int16),
+                ("tris_l", (self.t_max, 3), np.int16),
+                ("tris_r", (self.t_max, 3), np.int16),
+                ("tri_l", (self.Ho, self.s_max, 3), np.uint8),
+                ("tri_r", (self.Ho, self.s_max, 3), np.uint8)]
+        layout, off = [], 0
+        for name, shape, dt in segs:
+            nbytes = int(np.prod(shape)) * np.dtype(dt).itemsize
+            layout.append((name, shape, dt, off, nbytes))
+            off += nbytes
+        return layout, off
+
+    def pack_geometry(self, g: Dict[str, np.ndarray]) -> np.ndarray:
+        """host_mid dict -> one (nbytes,) uint8 buffer."""
+        layout, total = self._geo_layout
+        buf = np.empty(total, np.uint8)
+        for name, shape, dt, off, nbytes in layout:
+            buf[off:off + nbytes] = np.ascontiguousarray(
+                g[name], dtype=dt).view(np.uint8).ravel()
+        return buf
+
+    def unpack_geometry(self, buf: torch.Tensor):
+        """(..., nbytes) uint8 tensor -> (pts, tris_l, tris_r, tri_l, tri_r)
+        views of it (slices and Tensor.view(dtype)), with buf's leading
+        dimensions."""
+        layout, total = self._geo_layout
+        if buf.dtype != torch.uint8 or buf.shape[-1] != total:
+            raise ValueError("expected a (..., %d) uint8 buffer, got %s %s"
+                             % (total, tuple(buf.shape), buf.dtype))
+        lead = buf.shape[:-1]
+        out = []
+        for name, shape, dt, off, nbytes in layout:
+            seg = buf[..., off:off + nbytes]
+            if np.dtype(dt).itemsize > 1:
+                seg = seg.view(getattr(torch, np.dtype(dt).name))
+            out.append(seg.reshape(*lead, *shape))
+        return tuple(out)
+
+    def upload_geometry(self, g):
+        """host_mid products -> (pts, tris_l, tris_r, tri_l, tri_r) on the
+        engine's device, packed into one upload: a dict gives one frame's
+        arrays, a sequence of dicts a batch's."""
+        buf = (self.pack_geometry(g) if isinstance(g, dict)
+               else np.stack([self.pack_geometry(x) for x in g]))
+        return self.unpack_geometry(upload(buf, self.device))
 
     # ---- device stage B ---------------------------------------------------
 
@@ -119,7 +218,9 @@ class ElasEngine:
     def stage_dense(self, desc1, desc2, pts, tris_l, tris_r, tri_l,
                     tri_r) -> Tuple[torch.Tensor, torch.Tensor]:
         """Descriptors + geometry tensors -> (D1, D2) float32 (Ho, Wo)
-        maps of full-resolution disparities (-10 / -1 = invalid)."""
+        maps of full-resolution disparities (-10 / -1 = invalid); with a
+        leading batch dimension on every input, (B, Ho, Wo) maps, each
+        kernel launched once for the batch."""
         p = self.p
         left, right = self.dense_inputs(pts, tris_l, tris_r, tri_l, tri_r)
         D1 = matching_cu.compute_disparity(desc1, desc2, *left, p,
@@ -143,6 +244,11 @@ class ElasEngine:
                 D2 = post.median_filter(D2, p)
         return D1, D2
 
+    def stage_dense_batched(self, desc1, desc2, buf):
+        """(B, 16, H, W) descriptors + the (B, nbytes) packed geometry on
+        the device -> (D1, D2) (B, Ho, Wo)."""
+        return self.stage_dense(desc1, desc2, *self.unpack_geometry(buf))
+
     # ---- public entry point -----------------------------------------------
 
     def process(self, I1, I2) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -151,4 +257,4 @@ class ElasEngine:
         engine's device."""
         desc1, desc2, d_can = self.stage_support(I1, I2)
         g = self.host_mid(d_can.cpu().numpy())
-        return self.stage_dense(desc1, desc2, *self.geometry_to_device(g))
+        return self.stage_dense(desc1, desc2, *self.upload_geometry(g))

@@ -7,14 +7,19 @@ C entry point launches on the stream it is given and returns the CUDA error
 code of the launch.  --fmad=false keeps float code meaning exactly what the
 source says (no contraction into fused multiply-adds).  Nothing here runs at
 import: the library is built at the first kernel launch.
+
+The streaming paths launch from several threads: the first build and the
+wrappers' launch counters are guarded by locks (the counters are
+read-modify-writes), and each launch goes to the calling thread's current
+stream.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import os
 import shutil
+import threading
 
 import torch
 
@@ -30,12 +35,15 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     # name: argtypes (every function returns the launch's cudaError_t)
-    "svtt_support_scan": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "svtt_support_scan": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
     "svtt_match_keys": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                        _I, _I, _I, _I, _I, _P, _P],
-    "svtt_lr_check": [_P, _P, _I, _I, _F, _F, _P, _P, _P],
-    "svtt_speckle": [_P, _I, _I, _F, _I, _P, _P, _P, _P],
+                        _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "svtt_lr_check": [_P, _P, _I, _I, _I, _F, _F, _P, _P, _P],
+    "svtt_speckle": [_P, _I, _I, _I, _F, _I, _P, _P, _P, _P],
 }
+_build_lock = threading.Lock()
+_count_lock = threading.Lock()
+_lib = None
 
 
 def nvcc_path() -> str:
@@ -62,18 +70,39 @@ def _commands(nvcc: str):
     return stages
 
 
-@functools.cache
 def kernels() -> ctypes.CDLL:
-    """The kernel library, built on first use."""
-    nvcc = nvcc_path()
-    paths = [os.path.join(CSRC_DIR, s) for s in SOURCES + HEADERS]
-    lib = ctypes.CDLL(build_library("svtt_kernels", paths, NVCC_FLAGS,
-                                    _commands(nvcc)))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    """The kernel library, built on first use (once, whichever thread
+    comes first)."""
+    global _lib
+    with _build_lock:
+        if _lib is None:
+            paths = [os.path.join(CSRC_DIR, s) for s in SOURCES + HEADERS]
+            lib = ctypes.CDLL(build_library("svtt_kernels", paths, NVCC_FLAGS,
+                                            _commands(nvcc_path())))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def count(namespace: dict) -> None:
+    """Add one to a wrapper module's `launches` (pass its globals()),
+    under a lock."""
+    with _count_lock:
+        namespace["launches"] += 1
+
+
+def frames(t: torch.Tensor, single_ndim: int) -> int:
+    """Frames in a kernel input: 1 for a single frame (single_ndim
+    dimensions), else the leading batch dimension."""
+    if t.dim() == single_ndim:
+        return 1
+    if t.dim() != single_ndim + 1:
+        raise ValueError("expected %d or %d dimensions, got shape %s"
+                         % (single_ndim, single_ndim + 1, tuple(t.shape)))
+    return t.shape[0]
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -5,7 +5,9 @@ On CUDA tensors remove_small_segments launches the kernel; on CPU tensors
 it runs the plain version ops.postprocess.remove_small_segments.
 `launches` counts launches of this wrapper's kernel sequence (init, merge,
 resolve, apply), one per call.  The size threshold is
-ops.postprocess.speckle_threshold, which the plain version reads too.
+ops.postprocess.speckle_threshold, which the plain version reads too.  The
+map may carry a leading batch dimension: a batch is one launch sequence
+over one label buffer, whose components never cross frames.
 """
 
 from __future__ import annotations
@@ -20,19 +22,23 @@ launches = 0
 
 
 def remove_small_segments(D: torch.Tensor, p: ElasParams) -> torch.Tensor:
-    """(H, W) float32 -> D with small segments and invalid pixels -10."""
-    global launches
+    """(..., H, W) float32 -> D with small segments and invalid pixels
+    -10."""
     if D.device.type == "cpu":
         return plain.remove_small_segments(D, p)
-    H, W = D.shape
-    _lib.expect(D, "D", torch.float32, (H, W))
-    labels = torch.empty((H, W), dtype=torch.int32, device=D.device)
-    sizes = torch.zeros((H, W), dtype=torch.int32, device=D.device)
+    n = _lib.frames(D, 2)
+    _lib.expect(D, "D", torch.float32, D.shape)
+    H, W = D.shape[-2:]
+    if n * H * W >= 2 ** 31:
+        raise ValueError("%d maps of %dx%d overflow the int32 labels"
+                         % (n, H, W))
+    labels = torch.empty(D.shape, dtype=torch.int32, device=D.device)
+    sizes = torch.zeros(D.shape, dtype=torch.int32, device=D.device)
     out = torch.empty_like(D)
     err = _lib.kernels().svtt_speckle(
-        _lib.ptr(D), H, W, float(p.speckle_sim_threshold),
+        _lib.ptr(D), n, H, W, float(p.speckle_sim_threshold),
         plain.speckle_threshold(p),
         _lib.ptr(labels), _lib.ptr(sizes), _lib.ptr(out), _lib.stream())
     _lib.check(err, "remove_small_segments")
-    launches += 1
+    _lib.count(globals())
     return out

@@ -4,7 +4,8 @@ stereovision_tpu/ops/pallas/lr_pl.py.
 On CUDA tensors lr_consistency_check launches the kernel; on CPU tensors it
 runs the plain version ops.postprocess.lr_consistency_check.  `launches`
 counts kernel launches.  On the half lattice the kernel takes the half
-warp (ops.postprocess.lr_warp_scale).
+warp (ops.postprocess.lr_warp_scale).  The maps may carry a leading batch
+dimension: a batch is one launch.
 """
 
 from __future__ import annotations
@@ -19,19 +20,19 @@ launches = 0
 
 
 def lr_consistency_check(D1: torch.Tensor, D2: torch.Tensor, p: ElasParams):
-    """(H, W) float32 D1, D2 -> checked (D1, D2)."""
-    global launches
+    """(..., H, W) float32 D1, D2 -> checked (D1, D2)."""
     if D1.device.type == "cpu":
         return plain.lr_consistency_check(D1, D2, p)
-    H, W = D1.shape
-    _lib.expect(D1, "D1", torch.float32, (H, W))
-    _lib.expect(D2, "D2", torch.float32, (H, W))
+    n = _lib.frames(D1, 2)
+    _lib.expect(D1, "D1", torch.float32, D1.shape)
+    _lib.expect(D2, "D2", torch.float32, D1.shape)
+    H, W = D1.shape[-2:]
     O1 = torch.empty_like(D1)
     O2 = torch.empty_like(D2)
     err = _lib.kernels().svtt_lr_check(
-        _lib.ptr(D1), _lib.ptr(D2), H, W, plain.lr_warp_scale(p),
+        _lib.ptr(D1), _lib.ptr(D2), n, H, W, plain.lr_warp_scale(p),
         float(p.lr_threshold),
         _lib.ptr(O1), _lib.ptr(O2), _lib.stream())
     _lib.check(err, "lr_consistency_check")
-    launches += 1
+    _lib.count(globals())
     return O1, O2

@@ -3,10 +3,14 @@ stereovision_tpu/ops/pallas/matching_pl.py.
 
 On CUDA tensors match_keys lays its inputs out for the kernel (layout) and
 launches it (launch); on CPU tensors it runs the plain version
-ops.matching.match_keys.  `launches` counts kernel launches.
+ops.matching.match_keys.  `launches` counts kernel launches.  Every
+function takes one frame or a batch of frames (a leading batch dimension
+on every input): a batch is one launch.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -15,35 +19,53 @@ from .. import matching as plain
 from . import _lib
 
 launches = 0
+_priors = {}
+_priors_lock = threading.Lock()
+
+
+def prior_table(p: ElasParams, device: torch.device) -> torch.Tensor:
+    """The (D,) int32 prior table, resident on `device`: made once per
+    device and parameter set, shared by every launch (single-frame and
+    batched) from any thread."""
+    key = (p, device)
+    with _priors_lock:
+        t = _priors.get(key)
+        if t is None:
+            t = torch.as_tensor(p.prior_table(), device=device)
+            if t.device.type == "cuda":
+                # a pageable copy may still be in flight when it returns;
+                # other threads' streams read the table without waiting
+                torch.cuda.current_stream(t.device).synchronize()
+            _priors[key] = t
+    return t
 
 
 def cell_words(grid_mask: torch.Tensor) -> torch.Tensor:
-    """(D, gh, gw) bool -> (gh, gw, ceil(D/32)) int32 packed candidate
-    words: bit b of word w is disparity 32 w + b."""
-    D, gh, gw = grid_mask.shape
+    """(..., D, gh, gw) bool -> (..., gh, gw, ceil(D/32)) int32 packed
+    candidate words: bit b of word w is disparity 32 w + b."""
+    D, gh, gw = grid_mask.shape[-3:]
     nwords = -(-D // 32)
     m = torch.nn.functional.pad(grid_mask.to(torch.int64),
                                 (0, 0, 0, 0, 0, nwords * 32 - D))
     weights = torch.bitwise_left_shift(
         torch.ones(32, dtype=torch.int64, device=m.device),
         torch.arange(32, device=m.device))
-    words = (m.reshape(nwords, 32, gh, gw) * weights[None, :, None, None]
-             ).sum(dim=1)
-    return words.permute(1, 2, 0).to(torch.int32).contiguous()
+    words = (m.reshape(*m.shape[:-3], nwords, 32, gh, gw)
+             * weights[:, None, None]).sum(dim=-3)
+    return words.movedim(-3, -1).to(torch.int32).contiguous()
 
 
 def layout(desc_self: torch.Tensor, desc_other: torch.Tensor,
            grid_mask: torch.Tensor, p: ElasParams):
     """The kernel's inputs besides the plane maps: descriptors as uint8
     (rows, columns, 16), one pixel's descriptor one 16-byte load — A
-    (Ho, Wo, 16) on the output lattice, B (Ho, W, 16) the full rows its
-    warps read — the packed cell words and the prior table on the
-    descriptors' device."""
+    (..., Ho, Wo, 16) on the output lattice, B (..., Ho, W, 16) the full
+    rows its warps read — the packed cell words and the resident prior
+    table."""
     rows = plain.line_rows(desc_self, p)
-    A = plain.lattice_cols(rows, p).permute(1, 2, 0).contiguous()
-    B = plain.line_rows(desc_other, p).permute(1, 2, 0).contiguous()
-    prior = torch.as_tensor(p.prior_table(), device=desc_self.device)
-    return A, B, cell_words(grid_mask), prior
+    A = plain.lattice_cols(rows, p).movedim(-3, -1).contiguous()
+    B = plain.line_rows(desc_other, p).movedim(-3, -1).contiguous()
+    return A, B, cell_words(grid_mask), prior_table(p, desc_self.device)
 
 
 def launch(A: torch.Tensor, B: torch.Tensor, words: torch.Tensor,
@@ -51,19 +73,21 @@ def launch(A: torch.Tensor, B: torch.Tensor, words: torch.Tensor,
            pvalid: torch.Tensor, prior: torch.Tensor, p: ElasParams,
            right_image: bool) -> torch.Tensor:
     """Launch the kernel on layout()'s tensors and the plane maps; returns
-    the (Ho, Wo) int32 keys."""
-    global launches
-    Ho, Wo, _ = A.shape
-    W = B.shape[1]
+    the (..., Ho, Wo) int32 keys."""
+    n = _lib.frames(A, 3)
+    lead = tuple(A.shape[:-3])
+    Ho, Wo, _ = A.shape[-3:]
+    W = B.shape[-2]
     s = plain.lattice_step(p)
-    gh, gw, nwords = words.shape
+    gh, gw, nwords = words.shape[-3:]
     D = p.disp_num
-    _lib.expect(A, "A", torch.uint8, (Ho, Wo, 16))
-    _lib.expect(B, "B", torch.uint8, (Ho, W, 16))
-    _lib.expect(words, "cell_words", torch.int32, (gh, gw, -(-D // 32)))
+    _lib.expect(A, "A", torch.uint8, lead + (Ho, Wo, 16))
+    _lib.expect(B, "B", torch.uint8, lead + (Ho, W, 16))
+    _lib.expect(words, "cell_words", torch.int32,
+                lead + (gh, gw, -(-D // 32)))
     for name, t in (("d_lo", d_lo), ("d_hi", d_hi), ("d_plane", d_plane),
                     ("pvalid", pvalid)):
-        _lib.expect(t, name, torch.int32, (Ho, Wo))
+        _lib.expect(t, name, torch.int32, lead + (Ho, Wo))
     _lib.expect(prior, "prior", torch.int32, (D,))
     if s * (Wo - 1) >= W:
         raise ValueError("a %d-column lattice of step %d does not fit %d "
@@ -71,14 +95,15 @@ def launch(A: torch.Tensor, B: torch.Tensor, words: torch.Tensor,
     if gh * p.grid_size <= s * (Ho - 1) or gw * p.grid_size <= s * (Wo - 1):
         raise ValueError("cell words %s do not cover a %dx%d lattice of "
                          "step %d" % (tuple(words.shape), Ho, Wo, s))
-    key = torch.empty((Ho, Wo), dtype=torch.int32, device=A.device)
+    key = torch.empty(lead + (Ho, Wo), dtype=torch.int32, device=A.device)
     err = _lib.kernels().svtt_match_keys(
         _lib.ptr(A), _lib.ptr(B), _lib.ptr(words), _lib.ptr(d_lo),
         _lib.ptr(d_hi), _lib.ptr(d_plane), _lib.ptr(pvalid), _lib.ptr(prior),
-        Ho, Wo, W, s, D, nwords, p.grid_size, gw, plain.prior_offset(p),
-        int(right_image), _lib.ptr(key), _lib.stream())
+        n, Ho, Wo, W, s, D, nwords, p.grid_size, gh, gw,
+        plain.prior_offset(p), int(right_image), _lib.ptr(key),
+        _lib.stream())
     _lib.check(err, "match_keys")
-    launches += 1
+    _lib.count(globals())
     return key
 
 
@@ -86,7 +111,7 @@ def match_keys(desc_self: torch.Tensor, desc_other: torch.Tensor,
                d_lo: torch.Tensor, d_hi: torch.Tensor, d_plane: torch.Tensor,
                pvalid: torch.Tensor, grid_mask: torch.Tensor, p: ElasParams,
                right_image: bool) -> torch.Tensor:
-    """Minimum matching key per output pixel, (Ho, Wo) int32 (see
+    """Minimum matching key per output pixel, (..., Ho, Wo) int32 (see
     ops.matching)."""
     if desc_self.device.type == "cpu":
         return plain.match_keys(desc_self, desc_other, d_lo, d_hi, d_plane,

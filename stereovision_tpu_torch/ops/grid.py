@@ -16,7 +16,8 @@ from ..params import ElasParams
 def build_grid_mask(pts: torch.Tensor, p: ElasParams, width: int,
                     height: int, right_image: bool) -> torch.Tensor:
     """pts: (N, 3) int [u, v, d] support points, padded entries have d < 0.
-    Returns (D, gh, gw) bool candidate mask (D = disp_max + 1).
+    Returns (D, gh, gw) bool candidate mask (D = disp_max + 1); a batch
+    (B, N, 3) gives (B, D, gh, gw), each frame from its own points.
 
     The cell indices follow the JAX reference's scatter exactly: a negative
     index counts once from the end of its axis (as jnp indexing does; so a
@@ -24,9 +25,12 @@ def build_grid_mask(pts: torch.Tensor, p: ElasParams, width: int,
     and what is still out of range is dropped (mode="drop")."""
     gw, gh = p.grid_dims(width, height)
     D = p.disp_num
-    u = pts[:, 0].to(torch.int64)
-    v = pts[:, 1].to(torch.int64)
-    d = pts[:, 2].to(torch.int64)
+    lead = pts.shape[:-2]
+    pts = pts.reshape(-1, *pts.shape[-2:])
+    u = pts[..., 0].to(torch.int64)
+    v = pts[..., 1].to(torch.int64)
+    d = pts[..., 2].to(torch.int64)
+    b = torch.arange(pts.shape[0], device=pts.device)[:, None].expand_as(u)
     gs = p.grid_size
     x = torch.div(u - d if right_image else u, gs, rounding_mode="floor")
     y = torch.div(v, gs, rounding_mode="floor")
@@ -34,19 +38,20 @@ def build_grid_mask(pts: torch.Tensor, p: ElasParams, width: int,
     x = torch.where(x < 0, x + gw, x)
     y = torch.where(y < 0, y + gh, y)
     inb = (x >= 0) & (x < gw) & (y >= 0) & (y < gh)
-    mask = torch.zeros((D, gh, gw), dtype=torch.bool, device=pts.device)
+    mask = torch.zeros((pts.shape[0], D, gh, gw), dtype=torch.bool,
+                       device=pts.device)
     for dd in (-1, 0, 1):
         di = torch.clamp(d + dd, 0, p.disp_max)
-        mask[di[inb], y[inb], x[inb]] = True
-    return _dilate3x3(mask)
+        mask[b[inb], di[inb], y[inb], x[inb]] = True
+    return _dilate3x3(mask).reshape(*lead, D, gh, gw)
 
 
 def _dilate3x3(mask: torch.Tensor) -> torch.Tensor:
     """3x3 OR-dilation over the last two (cell) axes."""
     mh = mask.clone()
-    mh[:, :, 1:] |= mask[:, :, :-1]
-    mh[:, :, :-1] |= mask[:, :, 1:]
+    mh[..., 1:] |= mask[..., :-1]
+    mh[..., :-1] |= mask[..., 1:]
     mv = mh.clone()
-    mv[:, 1:, :] |= mh[:, :-1, :]
-    mv[:, :-1, :] |= mh[:, 1:, :]
+    mv[..., 1:, :] |= mh[..., :-1, :]
+    mv[..., :-1, :] |= mh[..., 1:, :]
     return mv

@@ -13,7 +13,9 @@ versions of the CUDA kernels in ops/cuda/lr_cu.py and ops/cuda/ccl_cu.py.
 Under subsampling every stage runs on the (H//2, W//2) output lattice with
 the reference's half-lattice rules: the L/R warp u -/+ d/2, the speckle
 threshold int(2 sqrt(speckle_size)), the gap ipol_gap_width // 2 + 1 and
-the 4-tap adaptive mean.
+the 4-tap adaptive mean.  Every stage takes one map or a batch (B, H, W)
+and gives each frame its single-frame result; the plain speckle filter
+loops over the frames of a batch.
 """
 
 from __future__ import annotations
@@ -57,15 +59,15 @@ def lr_consistency_check(D1: torch.Tensor, D2: torch.Tensor, p: ElasParams):
     |D2[trunc(u - s d)] - d| <= lr_threshold, a D2 pixel iff
     |D1[trunc(u + s d)] - d| <= lr_threshold, with s = lr_warp_scale(p);
     otherwise (or when the warp leaves the row) -10."""
-    W = D1.shape[1]
-    u = torch.arange(W, dtype=torch.float32, device=D1.device)[None, :]
+    W = D1.shape[-1]
+    u = torch.arange(W, dtype=torch.float32, device=D1.device)
     scale = lr_warp_scale(p)
 
     def check(Da, Db, sign):
         uw = u + sign * Da * scale
         in_img = (Da >= 0) & (uw >= 0) & (uw < W)
         idx = torch.clamp(uw.to(torch.int64), 0, W - 1)
-        db = torch.gather(Db, 1, idx)
+        db = torch.gather(Db, -1, idx)
         bad = torch.abs(db - Da) > p.lr_threshold
         return torch.where(in_img & ~bad, Da, _INVALID)
 
@@ -93,7 +95,10 @@ def remove_small_segments(D: torch.Tensor, p: ElasParams) -> torch.Tensor:
 
     Labels come from segmented min-scans (torch.cummin over re-keyed
     values, the JAX XLA formulation) iterated to the fixpoint, where every
-    component carries its minimum linear index."""
+    component carries its minimum linear index.  A batch is filtered one
+    frame at a time."""
+    if D.dim() == 3:
+        return torch.stack([remove_small_segments(x, p) for x in D])
     H, W = D.shape
     n = H * W
     if n * (max(H, W) + 1) >= 2 ** 31:
@@ -171,9 +176,11 @@ def gap_interpolation(D: torch.Tensor, p: ElasParams) -> torch.Tensor:
     gaps of up to ipol_gap_width pixels, ipol_gap_width // 2 + 1 on the
     half lattice."""
     gap = p.ipol_gap_width // 2 + 1 if p.subsampling else p.ipol_gap_width
-    out = _gap_pass_rows(D, gap, p.add_corners)
-    return _gap_pass_rows(out.T.contiguous(), gap,
-                          p.add_corners).T.contiguous()
+    H, W = D.shape[-2:]
+    out = _gap_pass_rows(D.reshape(-1, W), gap, p.add_corners)
+    cols = out.reshape(D.shape).transpose(-1, -2).reshape(-1, H)
+    out = _gap_pass_rows(cols, gap, p.add_corners)
+    return out.reshape(*D.shape[:-2], W, H).transpose(-1, -2).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -189,7 +196,7 @@ def _adaptive_pass(x: torch.Tensor, offsets, dim: int, centre_lo: int,
     The weighted sum is taken in tap order with the JAX reference's
     XLA:CPU contraction: fsum = fma(w0, t0, w1*t1), then
     fsum = fma(w_k, t_k, fsum) for k >= 2."""
-    H, W = x.shape
+    H, W = x.shape[-2:]
     wsum = None
     taps, wgts = [], []
     zero, four = _f32(0.0, x), _f32(4.0, x)
@@ -223,7 +230,7 @@ def adaptive_mean(D: torch.Tensor, p: ElasParams) -> torch.Tensor:
     consumes its result over centres v in [4, H-4], columns u in [3, W-4].
     On the half lattice: 4 taps at -2..+1, centres from 2 to n-2.
     Unwritten positions keep D."""
-    H, W = D.shape
+    H, W = D.shape[-2:]
     Dc = torch.where(D < 0, _INVALID, D)
     lo, hi = (2, 1) if p.subsampling else (4, 3)
     offsets = range(-lo, lo)
@@ -247,7 +254,7 @@ def median_filter(D: torch.Tensor, p: ElasParams) -> torch.Tensor:
     horizontal medians of D into a zero temp (only where D >= 0, only for
     u, v in [3, n-4]), then vertical medians of the temp back into D under
     the same conditions."""
-    H, W = D.shape
+    H, W = D.shape[-2:]
     ui = torch.arange(W, device=D.device)[None, :]
     vi = torch.arange(H, device=D.device)[:, None]
     region = (ui >= 3) & (ui < W - 3) & (vi >= 3) & (vi < H - 3)

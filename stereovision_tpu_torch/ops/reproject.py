@@ -55,8 +55,9 @@ def linear_taps(n_in: int, n_out: int, device) -> Taps:
 
 def resize_linear(x: torch.Tensor, rows: Taps = None,
                   cols: Taps = None) -> torch.Tensor:
-    """(h, w) float32 -> (H, W) through linear_taps tables of each axis
-    (None: the axis keeps its size, as jax.image.resize skips it).
+    """(..., h, w) float32 -> (..., H, W) through linear_taps tables of
+    each axis (None: the axis keeps its size, as jax.image.resize skips
+    it).
 
     Columns are contracted first, then rows, each output as fma(w1, x1,
     w0*x0) in float32: the order and rounding of the two dot products that
@@ -66,20 +67,20 @@ def resize_linear(x: torch.Tensor, rows: Taps = None,
     bit."""
     if cols is not None:
         i0, i1, w0, w1 = cols
-        x = fma32(w1, x[:, i1], w0 * x[:, i0])
+        x = fma32(w1, x[..., i1], w0 * x[..., i0])
     if rows is not None:
         i0, i1, w0, w1 = rows
-        x = fma32(w1[:, None], x[i1], w0[:, None] * x[i0])
+        x = fma32(w1[:, None], x[..., i1, :], w0[:, None] * x[..., i0, :])
     return x
 
 
 def reproject(dmap: torch.Tensor, Q) -> torch.Tensor:
-    """dmap: (H, W) disparity (any dtype); Q: (4, 4).  Returns points
-    (H, W, 3) float32.
+    """dmap: (..., H, W) disparity (any dtype); Q: (4, 4).  Returns points
+    (..., H, W, 3) float32.
 
     Each row of Q is evaluated as fma(q2, d, fma(q0, u, q1*v)) + q3 in
     float32, the form the JAX reference's XLA:CPU path computes."""
-    H, W = dmap.shape
+    H, W = dmap.shape[-2:]
     dev = dmap.device
     Q = torch.as_tensor(Q, dtype=torch.float32, device=dev)
     u = torch.arange(W, dtype=torch.float32, device=dev)[None, :]

@@ -19,6 +19,10 @@ v-2 and v+2, where a column outside [0, W) reads as zero bytes:
 with the strict-`<` two-minimum update of the JAX scan.  The zero columns
 only reach positions that finalize_support masks, so the support grid is
 the JAX package's bit for bit.
+
+Every function takes one frame or a batch (a leading batch dimension on
+each input) and gives each frame its single-frame result; the plain scan
+loops over the frames of a batch.
 """
 
 from __future__ import annotations
@@ -34,15 +38,16 @@ _BIG = 2 ** 30
 
 
 def candidate_rows(desc: torch.Tensor, p: ElasParams) -> torch.Tensor:
-    """(16, H, W) -> (Hc, 32, W): rows v-2 and v+2 (clipped) of every
-    candidate row v = vc * step, stacked into 32 byte planes."""
-    _, H, W = desc.shape
+    """(..., 16, H, W) -> (..., Hc, 32, W): rows v-2 and v+2 (clipped) of
+    every candidate row v = vc * step, stacked into 32 byte planes."""
+    lead = desc.shape[:-3]
+    H, W = desc.shape[-2:]
     Hc = -(-H // p.step)
     vc = np.arange(Hc) * p.step
     rows = np.stack([np.clip(vc - 2, 0, H - 1), np.clip(vc + 2, 0, H - 1)])
     idx = torch.as_tensor(rows.T.reshape(-1), device=desc.device)
-    return desc[:, idx, :].reshape(16, Hc, 2, W).permute(1, 2, 0, 3) \
-        .reshape(Hc, 32, W)
+    return desc[..., idx, :].reshape(*lead, 16, Hc, 2, W).movedim(-4, -2) \
+        .reshape(*lead, Hc, 32, W)
 
 
 def support_scan(desc1: torch.Tensor, desc2: torch.Tensor,
@@ -50,7 +55,11 @@ def support_scan(desc1: torch.Tensor, desc2: torch.Tensor,
     """Plain version of the support kernel (K2).
 
     desc1, desc2: (16, H, W) uint8.  Returns (8, Hc, W) int32 planes
-    f1e, f1d, f2e, f2d (forward) and b1e, b1d, b2e, b2d (backward)."""
+    f1e, f1d, f2e, f2d (forward) and b1e, b1d, b2e, b2d (backward); a
+    batch (B, 16, H, W) gives (B, 8, Hc, W), one frame at a time."""
+    if desc1.dim() == 4:
+        return torch.stack([support_scan(a, b, p)
+                            for a, b in zip(desc1, desc2)])
     W = desc1.shape[2]
     d_lo, d_hi = max(p.disp_min, 0), p.disp_max
     A = candidate_rows(desc1, p).to(torch.int16)
@@ -92,11 +101,11 @@ def support_scan(desc1: torch.Tensor, desc2: torch.Tensor,
 
 def finalize_support(scan: torch.Tensor, desc1: torch.Tensor,
                      desc2: torch.Tensor, p: ElasParams) -> torch.Tensor:
-    """Scan minima (8, Hc, W) -> validated support grid (Hc, Wc) int16, -1
-    where invalid: the validity masks, uniqueness ratios and L/R
+    """Scan minima (..., 8, Hc, W) -> validated support grid (..., Hc, Wc)
+    int16, -1 where invalid: the validity masks, uniqueness ratios and L/R
     consistency of reference elas.cpp:266-440 (counterpart of
     ops/support.py:142)."""
-    _, H, W = desc1.shape
+    H, W = desc1.shape[-2:]
     dev = desc1.device
     step = p.step
     dmax = p.disp_max
@@ -104,8 +113,8 @@ def finalize_support(scan: torch.Tensor, desc1: torch.Tensor,
     vc = np.arange(Hc) * step
     grid_cols = np.arange(-(-W // step)) * step
     gcols = torch.as_tensor(grid_cols, device=dev)
-    f1e, f1d, f2e, f2d = (scan[k][:, gcols] for k in range(4))
-    b1e, b1d, b2e, b2d = scan[4], scan[5], scan[6], scan[7]
+    f1e, f1d, f2e, f2d = (scan[..., k, :, :][..., gcols] for k in range(4))
+    b1e, b1d, b2e, b2d = (scan[..., k, :, :] for k in range(4, 8))
 
     def mask(x):
         return torch.as_tensor(x, device=dev)
@@ -120,7 +129,7 @@ def finalize_support(scan: torch.Tensor, desc1: torch.Tensor,
                        & (v_g <= H - 6))
     range_ok_left = mask(np.minimum(dmax, u_g - 5)
                          - max(p.disp_min, 0) >= 10)
-    tex_ok_left = tex1[vc_clip][:, gcols] >= p.support_texture
+    tex_ok_left = tex1[..., vc_clip, :][..., gcols] >= p.support_texture
 
     thr = torch.tensor(p.support_threshold, dtype=torch.float32, device=dev)
     uniq_f = ((f1d >= 0) & (f2d >= 0)
@@ -132,20 +141,20 @@ def finalize_support(scan: torch.Tensor, desc1: torch.Tensor,
     border_ok_b = mask((u_full >= 5) & (u_full <= W - 6))
     range_ok_right = mask(np.minimum(dmax, W - u_full - 5)
                           - max(p.disp_min, 0) >= 10)
-    tex_ok_right = tex2[vc_clip] >= p.support_texture
+    tex_ok_right = tex2[..., vc_clip, :] >= p.support_texture
     v_ok = mask(((vc >= 5) & (vc <= H - 6))[:, None])
     uniq_b = ((b1d >= 0) & (b2d >= 0)
               & (b1e.to(torch.float32) < thr * b2e.to(torch.float32)))
     d_bwd = torch.where(uniq_b & border_ok_b & range_ok_right & v_ok
                         & tex_ok_right, b1d, -1)
 
-    u2 = torch.clamp(gcols[None, :] - d_fwd, 0, W - 1)
-    d2 = torch.gather(d_bwd, 1, u2.to(torch.int64))
+    u2 = torch.clamp(gcols - d_fwd, 0, W - 1)
+    d2 = torch.gather(d_bwd, -1, u2.to(torch.int64))
     ok = (d_fwd >= 0) & (d2 >= 0) & (torch.abs(d_fwd - d2) <= p.lr_threshold)
     d_can = torch.where(ok, d_fwd, -1).to(torch.int16)
     # grid row/col 0 are never candidates (reference elas.cpp:394-396)
-    d_can[0, :] = -1
-    d_can[:, 0] = -1
+    d_can[..., 0, :] = -1
+    d_can[..., :, 0] = -1
     return d_can
 
 

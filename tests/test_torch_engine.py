@@ -28,8 +28,7 @@ from stereovision_tpu.params import app_params as j_app_params
 from stereovision_tpu.params import robotics_params as j_robotics_params
 
 import stereovision_tpu_torch as svt
-from stereovision_tpu_torch.convert import (geometry_to_torch,
-                                            params_from_dict)
+from stereovision_tpu_torch.convert import params_from_dict
 from stereovision_tpu_torch.engine import StereoEngine, bgr_to_gray
 from stereovision_tpu_torch.models.elas import ElasEngine
 from stereovision_tpu_torch.synthetic import stereo_pair
@@ -114,8 +113,8 @@ def test_params_from_dict_round_trip():
 
 @pytest.mark.parametrize("preset", sorted(PRESETS))
 def test_stage_b_from_jax_geometry(preset):
-    """The JAX host_mid products, carried over by convert.py, give the
-    port's stage B the JAX engine's D1 and D2."""
+    """The JAX host_mid products, carried over in the port's packed
+    upload, give the port's stage B the JAX engine's D1 and D2."""
     jp = PRESETS[preset]()
     I1, I2, _ = _gray_pair(W, H, seed=11)
     je = JaxElas(jp, W, H)
@@ -124,11 +123,11 @@ def test_stage_b_from_jax_geometry(preset):
     ref = je._stage_dense(desc1, desc2, *(jnp.asarray(g[k]) for k in
                           ("pts", "tris_l", "tris_r", "tri_l", "tri_r")))
     pe = ElasEngine(_port(jp), W, H, device="cpu")
-    geo = geometry_to_torch(g, "cpu")
+    geo = pe.upload_geometry(g)
     # span codes on the output lattice, the run cap sized by full width
-    assert geo["tri_l"].shape == (pe.Ho, pe.s_max, 3) == (je.Ho, je.s_max, 3)
+    assert geo[3].shape == (pe.Ho, pe.s_max, 3) == (je.Ho, je.s_max, 3)
     D1, D2 = pe.stage_dense(torch.as_tensor(np.array(desc1)),
-                            torch.as_tensor(np.array(desc2)), *geo.values())
+                            torch.as_tensor(np.array(desc2)), *geo)
     _eq(D1, ref[0])
     _eq(D2, ref[1])
 

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels held against their plain PyTorch versions.
+"""The port's CUDA kernels held against their plain PyTorch versions, one
+frame and a batch of frames a launch.
 
 Every test here needs the card: it is marked `cuda` and skips without
 one.  The inputs are one frame of the port's own pipeline on the CPU (held
@@ -9,6 +10,7 @@ installed; tests/conftest.py imports jax, so leave it out there:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -57,7 +59,7 @@ def test_kernels_match_plain_versions(cuda, preset, size):
     left, right, _ = stereo_pair(w, h, seed=3)
     desc1, desc2, d_can = eng.stage_support(bgr_to_gray(left),
                                             bgr_to_gray(right))
-    geo = eng.geometry_to_device(eng.host_mid(d_can.numpy()))
+    geo = eng.upload_geometry(eng.host_mid(d_can.numpy()))
     passes = eng.dense_inputs(*geo)
     D = [matching.compute_disparity(a, b, *inputs, p, right_image=right)
          for (a, b), inputs, right in zip(((desc1, desc2), (desc2, desc1)),
@@ -82,6 +84,62 @@ def test_kernels_match_plain_versions(cuda, preset, size):
     L1 = post.lr_consistency_check(D1, D2, p)[0]
     _equal(ccl_cu.remove_small_segments(L1, p),
            post.remove_small_segments(L1, p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_batched_kernels_match_plain_versions(cuda, preset):
+    """The batched modes on a batch of 3 frames of real inputs: each
+    kernel launches once a batch (K1 once a pass), and its output equals
+    the plain version's batch and the kernel's own single-frame launches,
+    exactly."""
+    p = PRESETS[preset]()
+    w, h = 333, 101
+    eng = ElasEngine(p, w, h, device="cpu")
+    pairs = np.stack([[bgr_to_gray(lf), bgr_to_gray(rf)] for lf, rf, _ in
+                      (stereo_pair(w, h, seed=s) for s in (3, 4, 5))])
+    desc1, desc2, d_can = eng.stage_support_batched(pairs)
+    buf = torch.as_tensor(np.stack([
+        eng.pack_geometry(eng.host_mid(d_can[i].numpy())) for i in range(3)]))
+    passes = eng.dense_inputs(*eng.unpack_geometry(buf))
+    D = [matching.compute_disparity(a, b, *inputs, p, right_image=right)
+         for (a, b), inputs, right in zip(((desc1, desc2), (desc2, desc1)),
+                                          passes, (False, True))]
+
+    def once(wrapper, fn, *args):
+        before = wrapper.launches
+        out = fn(*args)
+        assert wrapper.launches == before + 1
+        return out
+
+    d1, d2 = desc1.to(cuda), desc2.to(cuda)
+    scan = once(support_cu, support_cu.support_scan, d1, d2, p)
+    _equal(scan, support.support_scan(d1, d2, p))
+    for i in range(3):
+        _equal(scan[i], support_cu.support_scan(d1[i].clone(), d2[i].clone(),
+                                                p))
+
+    for (a, b), (tid, planes, gm), right in zip(((d1, d2), (d2, d1)), passes,
+                                                (False, True)):
+        maps = matching.plane_maps(tid.to(cuda), planes.to(cuda), p)
+        gm = gm.to(cuda)
+        keys = once(matching_cu, matching_cu.match_keys, a, b, *maps, gm, p,
+                    right)
+        _equal(keys, matching.match_keys(a, b, *maps, gm, p, right))
+        for i in range(3):
+            # clones: a frame's slice need not be 16-byte aligned
+            _equal(keys[i], matching_cu.match_keys(
+                a[i], b[i], *(m[i].clone() for m in maps), gm[i], p, right))
+
+    D1, D2 = D[0].to(cuda), D[1].to(cuda)
+    checked = once(lr_cu, lr_cu.lr_consistency_check, D1, D2, p)
+    for k, ref in zip(checked, post.lr_consistency_check(D1, D2, p)):
+        _equal(k, ref)
+    L1 = checked[0]
+    speckled = once(ccl_cu, ccl_cu.remove_small_segments, L1, p)
+    _equal(speckled, post.remove_small_segments(L1, p))
+    for i in range(3):
+        _equal(speckled[i], ccl_cu.remove_small_segments(L1[i].clone(), p))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
