@@ -17,7 +17,10 @@ half lattice):
   4. every kernel against its plain PyTorch version on the card, on the
      inputs one frame of the main path gives it: exact equality required,
      times by CUDA events (median of 10 calls) of the kernel's launch
-     alone, of its wrapper (layout step included) and of the plain version;
+     alone, of its wrapper (K1's layout step included; K2 and K3 have
+     none) and of the plain version; and K3 once more on a constant map
+     of the mode's output size, one component over the whole frame, the
+     longest union-find chains (exact, timed);
   5. the main path: StereoEngine.process_frame over 8 frames after one
      warm-up, with the kernels' launch counters set to 0 just before and
      read just after; frame 0 is checked against the same port on the CPU
@@ -43,7 +46,8 @@ half lattice):
      median) and two batches of stream_batched under torch.profiler;
 and last:
   7. one JSON line per kernel result, one `{"kernels": [...]}` line with a
-     row per kernel and mode, single-frame and batched, the card line, and
+     row per kernel and mode, single-frame and batched (K2's and K3's rows
+     name the design that replaced their first one), the card line, and
      `{"ok": true, "device": {...}}`.
 
 It exits non-zero, printing no result, when CUDA is not available or the
@@ -76,6 +80,9 @@ SOURCES = {"matching": (CSRC + "matching.cu", PALLAS + "matching_pl.py:60"),
            "support": (CSRC + "support.cu", PALLAS + "support_pl.py:50"),
            "lr_check": (CSRC + "lr.cu", PALLAS + "lr_pl.py:36"),
            "speckle_ccl": (CSRC + "ccl.cu", PALLAS + "ccl_pl.py:82")}
+# the kernels whose first design was replaced, and by what
+REDESIGNED = {"support": "shared F(x, d) table, reads the descriptor planes",
+              "speckle_ccl": "block-local union-find, path compression"}
 
 
 def card_line() -> str:
@@ -205,9 +212,9 @@ def check_kernels(eng, p, frames, card, mode) -> dict:
         return {"singles": lambda: [fn(*(frame(a, i) for a in args))
                                     for i in range(B)]}
 
-    # the kernels' own inputs, laid out by their wrappers: "ms" times the
-    # launch alone, "wrapper_ms" the wrapper with its layout step
-    sup_in = (support_cu.layout(desc1, p), support_cu.layout(desc2, p))
+    # K1's inputs, laid out by its wrapper: "ms" times the launch alone,
+    # "wrapper_ms" the wrapper with its layout step; K2 launches on the
+    # descriptors themselves
     mat_l = matching_cu.layout(desc1, desc2, gm_l, p)
     mat_r = matching_cu.layout(desc2, desc1, gm_r, p)
     n_words = -(-p.disp_num // 32)
@@ -219,9 +226,9 @@ def check_kernels(eng, p, frames, card, mode) -> dict:
     checks = {
         "support": dict(
             kernel=lambda: support_cu.support_scan(desc1, desc2, p),
-            launch=lambda: support_cu.launch(*sup_in, p),
+            launch=lambda: support_cu.launch(desc1, desc2, p),
             plain=lambda: support.support_scan(desc1, desc2, p),
-            nbytes=B * (2 * Hc * W * 32 + 8 * Hc * W * 4),
+            nbytes=B * (2 * 16 * H * W + 8 * Hc * W * 4),
             ops=B * support_ops(p),
             **singles(lambda a, b: support_cu.support_scan(a, b, p),
                       desc1, desc2)),
@@ -257,6 +264,12 @@ def check_kernels(eng, p, frames, card, mode) -> dict:
             nbytes=B * 2 * Ho * Wo * 4, ops=B * Ho * Wo * 16,
             **singles(lambda d: ccl_cu.remove_small_segments(d, p), L1)),
     }
+    if B == 1:
+        const = torch.full((Ho, Wo), 30.0, device=L1.device)
+        checks["speckle_ccl_constant_map"] = dict(
+            kernel=lambda: ccl_cu.remove_small_segments(const, p),
+            plain=lambda: postprocess.remove_small_segments(const, p),
+            nbytes=2 * Ho * Wo * 4, ops=Ho * Wo * 16)
     # a batch's plain versions loop over its frames: fewer repetitions
     return run_checks(checks, card, mode, REPS if B == 1 else 3)
 
@@ -524,6 +537,8 @@ def kernel_rows(results, launches, suffix) -> list:
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None})
+        if name in REDESIGNED:
+            rows[-1]["redesigned"] = REDESIGNED[name]
     return rows
 
 

@@ -35,7 +35,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     # name: argtypes (every function returns the launch's cudaError_t)
-    "svtt_support_scan": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "svtt_support_scan": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "svtt_support_max_span": [_P],
     "svtt_match_keys": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "svtt_lr_check": [_P, _P, _I, _I, _I, _F, _F, _P, _P, _P],

@@ -1,10 +1,10 @@
-"""K3 wrapper: speckle removal by union-find CCL (csrc/ccl.cu), counterpart
-of stereovision_tpu/ops/pallas/ccl_pl.py.
+"""K3 wrapper: speckle removal by block-local union-find CCL (csrc/ccl.cu),
+counterpart of stereovision_tpu/ops/pallas/ccl_pl.py.
 
 On CUDA tensors remove_small_segments launches the kernel; on CPU tensors
 it runs the plain version ops.postprocess.remove_small_segments.
-`launches` counts launches of this wrapper's kernel sequence (init, merge,
-resolve, apply), one per call.  The size threshold is
+`launches` counts launches of this wrapper's kernel sequence (local,
+border, count, apply), one per call.  The size threshold is
 ops.postprocess.speckle_threshold, which the plain version reads too.  The
 map may carry a leading batch dimension: a batch is one launch sequence
 over one label buffer, whose components never cross frames.
@@ -33,7 +33,7 @@ def remove_small_segments(D: torch.Tensor, p: ElasParams) -> torch.Tensor:
         raise ValueError("%d maps of %dx%d overflow the int32 labels"
                          % (n, H, W))
     labels = torch.empty(D.shape, dtype=torch.int32, device=D.device)
-    sizes = torch.zeros(D.shape, dtype=torch.int32, device=D.device)
+    sizes = torch.empty(D.shape, dtype=torch.int32, device=D.device)
     out = torch.empty_like(D)
     err = _lib.kernels().svtt_speckle(
         _lib.ptr(D), n, H, W, float(p.speckle_sim_threshold),

@@ -3,7 +3,11 @@ frame and a batch of frames a launch.
 
 Every test here needs the card: it is marked `cuda` and skips without
 one.  The inputs are one frame of the port's own pipeline on the CPU (held
-against the JAX package by tests/test_torch_ops.py), moved to the card.
+against the JAX package by tests/test_torch_ops.py), moved to the card,
+and the hard inputs of tests/hard_inputs.py (held against the JAX package
+by tests/test_torch_hard_inputs.py): the speckle kernel (K3) and the
+support kernel (K2) run each of them twice, and the two runs must agree,
+which a race in their atomics or shared tables would break.
 The file imports nothing of JAX, so it also runs where only PyTorch is
 installed; tests/conftest.py imports jax, so leave it out there:
 
@@ -22,6 +26,8 @@ from stereovision_tpu_torch.ops.cuda import (ccl_cu, lr_cu, matching_cu,
                                              support_cu)
 from stereovision_tpu_torch.params import app_params, robotics_params
 from stereovision_tpu_torch.synthetic import stereo_pair
+
+import hard_inputs
 
 PRESETS = {
     "app": lambda: app_params().replace(disp_max=63),
@@ -142,6 +148,107 @@ def test_batched_kernels_match_plain_versions(cuda, preset):
         _equal(speckled[i], ccl_cu.remove_small_segments(L1[i].clone(), p))
 
 
+def _twice(fn, *args):
+    """fn run twice on the same inputs: both runs must agree."""
+    first, second = fn(*args), fn(*args)
+    _equal(first, second)
+    return first
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", hard_inputs.MAP_SIZES)
+@pytest.mark.parametrize("name", sorted(hard_inputs.MAPS))
+@pytest.mark.parametrize("subsampling", [False, True])
+def test_speckle_kernel_hard_maps(cuda, subsampling, name, size):
+    p = app_params(subsampling=subsampling)
+    w, h = size
+    D = torch.as_tensor(hard_inputs.MAPS[name](
+        h, w, p.speckle_sim_threshold, post.speckle_threshold(p),
+        seed=7)).to(cuda)
+    _equal(_twice(ccl_cu.remove_small_segments, D, p),
+           post.remove_small_segments(D, p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subsampling", [False, True])
+def test_speckle_kernel_kitti_single_component(cuda, subsampling):
+    """One component over a whole KITTI-size map (1242 x 375, or its half
+    lattice): the longest chains the union-find can meet."""
+    p = app_params(subsampling=subsampling)
+    h, w = p.out_shape(1242, 375)
+    D = torch.as_tensor(hard_inputs.whole(
+        h, w, p.speckle_sim_threshold, post.speckle_threshold(p),
+        seed=5)).to(cuda)
+    out = _twice(ccl_cu.remove_small_segments, D, p)
+    _equal(out, post.remove_small_segments(D, p))
+    assert torch.equal(out, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", hard_inputs.MAP_SIZES)
+@pytest.mark.parametrize("subsampling", [False, True])
+def test_speckle_kernel_batch_frames_do_not_join(cuda, subsampling, size):
+    p = app_params(subsampling=subsampling)
+    w, h = size
+    Ds = torch.as_tensor(hard_inputs.touching_batch(
+        h, w, p.speckle_sim_threshold, post.speckle_threshold(p),
+        seed=11)).to(cuda)
+    out = _twice(ccl_cu.remove_small_segments, Ds, p)
+    _equal(out, post.remove_small_segments(Ds, p))
+    for i in range(len(Ds)):
+        _equal(out[i], ccl_cu.remove_small_segments(Ds[i].clone(), p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", hard_inputs.SCAN_CASES,
+                         ids=hard_inputs.case_id)
+@pytest.mark.parametrize("subsampling", [False, True])
+def test_support_kernel_hard_ranges(cuda, subsampling, case):
+    """disp_min > 0, disp_max above the frame's width, ties."""
+    w, h, d_min, d_max, levels = case
+    p = app_params(subsampling=subsampling).replace(disp_min=d_min,
+                                                    disp_max=d_max)
+    d1, d2 = (torch.as_tensor(x).to(cuda) for x in hard_inputs.descriptors(
+        h, w, seed=d_max, levels=levels))
+    _equal(_twice(support_cu.launch, d1, d2, p),
+           support.support_scan(d1, d2, p))
+
+
+@pytest.mark.cuda
+def test_support_kernel_span_ceiling(cuda):
+    """The widest d range whose window fits one block's shared memory runs
+    exactly; one d more raises a ValueError before any launch."""
+    span = support_cu.max_span()
+    assert span >= 256
+    p = app_params().replace(disp_min=span - 40, disp_max=span)
+    d1, d2 = (torch.as_tensor(x).to(cuda) for x in hard_inputs.descriptors(
+        12, span + 21, seed=3))
+    _equal(_twice(support_cu.launch, d1, d2, p),
+           support.support_scan(d1, d2, p))
+    launched = support_cu.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        support_cu.launch(d1, d2, p.replace(disp_max=span + 1))
+    assert support_cu.launches == launched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subsampling", [False, True])
+def test_support_kernel_kitti_random_descriptors(cuda, subsampling):
+    """Random descriptors at KITTI size, D = 256, one frame and a batch of
+    3 (each frame also launched alone)."""
+    p = app_params(subsampling=subsampling)
+    assert p.disp_num == 256
+    pairs = [hard_inputs.descriptors(375, 1242, seed=s) for s in (1, 2, 3)]
+    d1 = torch.as_tensor(np.stack([a for a, _ in pairs])).to(cuda)
+    d2 = torch.as_tensor(np.stack([b for _, b in pairs])).to(cuda)
+    one = _twice(support_cu.support_scan, d1[0], d2[0], p)
+    _equal(one, support.support_scan(d1[0], d2[0], p))
+    batch = _twice(support_cu.support_scan, d1, d2, p)
+    _equal(batch, support.support_scan(d1, d2, p))
+    for i in range(3):
+        _equal(batch[i], support_cu.support_scan(d1[i], d2[i], p))
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take():
     """The launch functions take only CUDA tensors: a CPU tensor handed
     past the wrapper's device dispatch raises before any build or launch."""
@@ -152,5 +259,5 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                            *(torch.zeros((4, 8), dtype=torch.int32),) * 4,
                            torch.zeros(256, dtype=torch.int32), p, False)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        support_cu.launch(*(torch.zeros((2, 8, 32), dtype=torch.uint8),) * 2,
+        support_cu.launch(*(torch.zeros((16, 8, 32), dtype=torch.uint8),) * 2,
                           p)
