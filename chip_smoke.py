@@ -8,7 +8,11 @@ exit code (nothing is caught):
 
   1. the card: `nvidia-smi` name and power limit, torch's device name;
   2. build: the native host helpers (g++) and the four CUDA kernels (nvcc,
-     sm_90a, one process per source, in parallel), timed;
+     sm_90a, one process per source, in parallel), timed; then the floor
+     line: an empty kernel of the same library timed as the kernels are
+     (one call between two events; the mean of 100 calls between one pair
+     as the host issues them; the mean of 100 calls queued behind a spin
+     kernel that holds the stream, so they run back to back on the card);
   3. a seeded synthetic KITTI-size (1242x375) stereo pair with its true
      disparity (stereovision_tpu_torch/synthetic.py);
 then, once at full resolution (app_params()) and once subsampled
@@ -17,8 +21,9 @@ half lattice):
   4. every kernel against its plain PyTorch version on the card, on the
      inputs one frame of the main path gives it: exact equality required,
      times by CUDA events (median of 10 calls) of the kernel's launch
-     alone, of its wrapper (K1's layout step included; K2 and K3 have
-     none) and of the plain version; and K3 once more on a constant map
+     function alone, of its wrapper (the launch and its device dispatch)
+     and of the plain version, and the floor line's two means of 100
+     launches; and K3 once more on a constant map
      of the mode's output size, one component over the whole frame, the
      longest union-find chains (exact, timed);
   5. the main path: StereoEngine.process_frame over 8 frames after one
@@ -46,8 +51,8 @@ half lattice):
      median) and two batches of stream_batched under torch.profiler;
 and last:
   7. one JSON line per kernel result, one `{"kernels": [...]}` line with a
-     row per kernel and mode, single-frame and batched (K2's and K3's rows
-     name the design that replaced their first one), the card line, and
+     row per kernel and mode, single-frame and batched (each row names the
+     design that replaced the kernel's first one), the card line, and
      `{"ok": true, "device": {...}}`.
 
 It exits non-zero, printing no result, when CUDA is not available or the
@@ -82,7 +87,14 @@ SOURCES = {"matching": (CSRC + "matching.cu", PALLAS + "matching_pl.py:60"),
            "speckle_ccl": (CSRC + "ccl.cu", PALLAS + "ccl_pl.py:82")}
 # the kernels whose first design was replaced, and by what
 REDESIGNED = {"support": "shared F(x, d) table, reads the descriptor planes",
-              "speckle_ccl": "block-local union-find, path compression"}
+              "speckle_ccl": "block-local union-find, path compression",
+              "matching": "4 rows x 128 columns a block, B windows and cell "
+                          "words in shared memory, reads the planes and the "
+                          "mask",
+              "lr_check": "a row a block, both rows in shared memory"}
+BACK_TO_BACK = 100           # launches timed between one pair of events
+SPIN_MS = 50.0               # how long the spin kernel holds the stream
+SPIN_TRIES = 3               # ... at first; 4x longer at each retry
 
 
 def card_line() -> str:
@@ -106,6 +118,48 @@ def event_ms(fn, reps=REPS) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def mean_ms(fn, n, spin_ms=0.0):
+    """Mean milliseconds of n calls of fn between one pair of events,
+    behind a spin kernel of spin_ms that holds the stream (0: none), and
+    whether the spin was still running when the last call was queued."""
+    from stereovision_tpu_torch.ops.cuda import _lib
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    fn()
+    torch.cuda.synchronize()
+    if spin_ms:
+        _lib.spin(spin_ms)
+        spun = torch.cuda.Event()
+        spun.record()
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    held = bool(spin_ms) and not spun.query()
+    end.synchronize()
+    return start.elapsed_time(end) / n, held
+
+
+def launch_times(fn, name, n=BACK_TO_BACK) -> dict:
+    """fn timed three ways: event_ms (one call between two events, median
+    of REPS), back_to_back_ms (the mean of n calls between one pair of
+    events, issued as fast as the host can) and queued_ms (the same n
+    calls queued behind a spin kernel that holds the stream, so that they
+    run back to back on the card whatever the host's pace).  The spin
+    starts at SPIN_MS and grows 4x, SPIN_TRIES times at most, until it
+    outlasts the queueing; if it never does, the run fails with `name`."""
+    out = {"event_ms": event_ms(fn), "back_to_back_ms": mean_ms(fn, n)[0]}
+    spin = SPIN_MS
+    for _ in range(SPIN_TRIES):
+        out["queued_ms"], held = mean_ms(fn, n, spin)
+        if held:
+            out["spin_ms"] = spin
+            return out
+        spin *= 4
+    raise AssertionError("%s: queueing %d launches outlasted a %g ms spin"
+                         % (name, n, spin / 4))
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -212,16 +266,14 @@ def check_kernels(eng, p, frames, card, mode) -> dict:
         return {"singles": lambda: [fn(*(frame(a, i) for a in args))
                                     for i in range(B)]}
 
-    # K1's inputs, laid out by its wrapper: "ms" times the launch alone,
-    # "wrapper_ms" the wrapper with its layout step; K2 launches on the
-    # descriptors themselves
-    mat_l = matching_cu.layout(desc1, desc2, gm_l, p)
-    mat_r = matching_cu.layout(desc2, desc1, gm_r, p)
-    n_words = -(-p.disp_num // 32)
-    # a frame's A on the lattice, B's full rows, cell words, four maps,
-    # keys; one prior table
-    match_bytes = (B * (Ho * Wo * 16 + Ho * W * 16 + gm_l.shape[-2]
-                        * gm_l.shape[-1] * n_words * 4 + 4 * Ho * Wo * 4
+    # "ms" times a kernel's launch function alone, "wrapper_ms" the
+    # wrapper (its device dispatch; K1's also finds the resident prior)
+    prior = matching_cu.prior_table(p, desc1.device)
+    # a frame's Ho source rows of the A planes at the lattice's columns,
+    # the Ho full rows of the B planes, the grid mask's bytes, four maps,
+    # the keys; one prior table
+    match_bytes = (B * (Ho * Wo * 16 + Ho * W * 16 + p.disp_num
+                        * gm_l.shape[-2] * gm_l.shape[-1] + 4 * Ho * Wo * 4
                         + Ho * Wo * 4) + p.disp_num * 4)
     checks = {
         "support": dict(
@@ -235,8 +287,8 @@ def check_kernels(eng, p, frames, card, mode) -> dict:
         "matching_left": dict(
             kernel=lambda: matching_cu.match_keys(desc1, desc2, *maps_l,
                                                   gm_l, p, False),
-            launch=lambda: matching_cu.launch(*mat_l[:3], *maps_l, mat_l[3],
-                                              p, False),
+            launch=lambda: matching_cu.launch(desc1, desc2, *maps_l, gm_l,
+                                              prior, p, False),
             plain=lambda: matching.match_keys(desc1, desc2, *maps_l, gm_l,
                                               p, False),
             nbytes=match_bytes, ops=candidates(maps_l, gm_l, False) * 32,
@@ -245,8 +297,8 @@ def check_kernels(eng, p, frames, card, mode) -> dict:
         "matching_right": dict(
             kernel=lambda: matching_cu.match_keys(desc2, desc1, *maps_r,
                                                   gm_r, p, True),
-            launch=lambda: matching_cu.launch(*mat_r[:3], *maps_r, mat_r[3],
-                                              p, True),
+            launch=lambda: matching_cu.launch(desc2, desc1, *maps_r, gm_r,
+                                              prior, p, True),
             plain=lambda: matching.match_keys(desc2, desc1, *maps_r, gm_r,
                                               p, True),
             nbytes=match_bytes, ops=candidates(maps_r, gm_r, True) * 32,
@@ -254,6 +306,7 @@ def check_kernels(eng, p, frames, card, mode) -> dict:
                       desc2, desc1, *maps_r, gm_r)),
         "lr_check": dict(
             kernel=lambda: lr_cu.lr_consistency_check(D1, D2, p),
+            launch=lambda: lr_cu.launch(D1, D2, p),
             plain=lambda: postprocess.lr_consistency_check(D1, D2, p),
             nbytes=B * 4 * Ho * Wo * 4, ops=B * 2 * Ho * Wo * 8,
             **singles(lambda a, b: lr_cu.lr_consistency_check(a, b, p),
@@ -290,7 +343,9 @@ def run_checks(checks, card, mode, plain_reps=REPS) -> dict:
             r["frames_differing_from_single_launches"] = sum(
                 compare(tuple(o[i] for o in outs), single)[0] > 0
                 for i, single in enumerate(c["singles"]()))
-        r.update(ms=event_ms(c.get("launch", c["kernel"])),
+        times = launch_times(c.get("launch", c["kernel"]),
+                             "%s (%s)" % (name, mode))
+        r.update(ms=times.pop("event_ms"), **times,
                  wrapper_ms=event_ms(c["kernel"]),
                  plain_ms=event_ms(c["plain"], plain_reps),
                  bytes=c["nbytes"], ops=c["ops"], card=card)
@@ -569,6 +624,10 @@ def main() -> int:
     print(json.dumps({"build": {"host_lib_s": t1 - t0, "cuda_kernels_s":
                                 t2 - t1, "host_lib": host._name,
                                 "kernels": kernels._name}}), flush=True)
+    print(json.dumps({"floor": dict(kernel="empty_kernel (csrc/floor.cu)",
+                                    **launch_times(_lib.empty, "floor"),
+                                    card=card)}),
+          flush=True)
 
     # 3. scene
     calib = os.path.join(REPO, "stereovision_tpu_torch", "data",

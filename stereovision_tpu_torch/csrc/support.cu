@@ -54,34 +54,16 @@
 // past it.  Segments of 128 and 512 columns were slower than 256 in every
 // mode on an H100.
 
-#include <mutex>
-
 #include "svtt_cuda.cuh"
 
 namespace {
 
 using svtt::kBig;
+using svtt::pack4;
+using svtt::sad16_acc;
 
 constexpr int kChunk = 16;     // d values a table
 constexpr int kSegment = 256;  // output columns a block (S)
-
-// Sum of the four byte-wise |a - b| of two packed words, plus acc.
-__device__ __forceinline__ unsigned sad4(unsigned a, unsigned b,
-                                         unsigned acc) {
-    unsigned r;
-    asm("vabsdiff4.u32.u32.u32.add %0, %1, %2, %3;"
-        : "=r"(r)
-        : "r"(a), "r"(b), "r"(acc));
-    return r;
-}
-
-__device__ __forceinline__ unsigned sad16_acc(uint4 a, uint4 b,
-                                             unsigned acc) {
-    acc = sad4(a.x, b.x, acc);
-    acc = sad4(a.y, b.y, acc);
-    acc = sad4(a.z, b.z, acc);
-    return sad4(a.w, b.w, acc);
-}
 
 // Two-minimum update with strict <: ties keep the earlier (smaller) d.
 __device__ __forceinline__ void keep_two(int cost, int d, int& e1, int& d1,
@@ -95,12 +77,6 @@ __device__ __forceinline__ void keep_two(int cost, int d, int& e1, int& d1,
         e2 = cost;
         d2 = d;
     }
-}
-
-__device__ __forceinline__ unsigned pack4(const uint8_t* p, size_t plane) {
-    return (unsigned)__ldg(p) | (unsigned)__ldg(p + plane) << 8 |
-           (unsigned)__ldg(p + 2 * plane) << 16 |
-           (unsigned)__ldg(p + 3 * plane) << 24;
 }
 
 // Column x of one candidate row's 32 bytes: planes 0-15 of row ra (lo),
@@ -231,29 +207,17 @@ size_t smem_bytes(int d_top) {
     return 4 * sizeof(uint4) * (N + 1) + kChunk * 2 * ((N + 1) & ~(size_t)1);
 }
 
-constexpr int kMaxDevices = 64;
-
 // The device's opt-in maximum of dynamic shared memory a block, set on the
 // kernel once for each device in the process (so no launch from another
 // thread ever lowers it); the negated CUDA error if that failed.
 int smem_limit() {
-    static std::once_flag once[kMaxDevices];
-    static int limit[kMaxDevices];
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return -(int)e;
-    if (dev >= kMaxDevices) return -(int)cudaErrorInvalidDevice;
-    std::call_once(once[dev], [dev] {
-        int v = 0;
-        cudaError_t e = cudaDeviceGetAttribute(
-            &v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-        if (e == cudaSuccess)
-            e = cudaFuncSetAttribute(
-                support_scan_kernel,
-                cudaFuncAttributeMaxDynamicSharedMemorySize, v);
-        limit[dev] = e == cudaSuccess ? v : -(int)e;
+    static std::once_flag once[svtt::kMaxDevices];
+    static int limit[svtt::kMaxDevices];
+    return svtt::smem_limit_once(once, limit, [](int v) {
+        return cudaFuncSetAttribute(
+            support_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            v);
     });
-    return limit[dev];
 }
 
 }  // namespace

@@ -1,7 +1,8 @@
 """Build and bind the CUDA kernels (csrc/*.cu) for the wrappers in this
 package.
 
-The four sources are compiled in parallel with nvcc for sm_90a and linked
+The sources (the four kernels and floor.cu, two kernels that measure the
+launch floor) are compiled in parallel with nvcc for sm_90a and linked
 into one shared library with a plain C interface, loaded with ctypes; every
 C entry point launches on the stream it is given and returns the CUDA error
 code of the launch.  --fmad=false keeps float code meaning exactly what the
@@ -25,7 +26,7 @@ import torch
 
 from ...native import CSRC_DIR, build_library
 
-SOURCES = ("support.cu", "matching.cu", "lr.cu", "ccl.cu")
+SOURCES = ("support.cu", "matching.cu", "lr.cu", "ccl.cu", "floor.cu")
 HEADERS = ("svtt_cuda.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "--fmad=false", "-std=c++17", "-Xcompiler", "-fPIC")
@@ -33,13 +34,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # name: argtypes (every function returns the launch's cudaError_t)
     "svtt_support_scan": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "svtt_support_max_span": [_P],
     "svtt_match_keys": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "svtt_match_max_span": [_I, _I, _I, _P],
     "svtt_lr_check": [_P, _P, _I, _I, _I, _F, _F, _P, _P, _P],
+    "svtt_lr_max_width": [_P],
+    "svtt_empty": [_P],
+    "svtt_spin": [_L, _P],
     "svtt_speckle": [_P, _I, _I, _I, _F, _I, _P, _P, _P, _P],
 }
 _build_lock = threading.Lock()
@@ -114,9 +120,11 @@ def stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-def expect(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
+def expect(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
+           align: int = 16) -> None:
     """Raise unless t is a contiguous CUDA tensor of this dtype and shape,
-    16-byte aligned (the kernels load 16-byte vectors)."""
+    its data `align`-byte aligned (16 where a kernel loads 16-byte vectors
+    from it)."""
     if t.device.type != "cuda":
         raise ValueError("%s must be a CUDA tensor, got %s" % (name, t.device))
     if t.dtype != dtype:
@@ -124,11 +132,24 @@ def expect(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError("%s must have shape %s, got %s"
                          % (name, tuple(shape), tuple(t.shape)))
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError("%s must be contiguous and 16-byte aligned" % name)
+    if not t.is_contiguous() or t.data_ptr() % align:
+        raise ValueError("%s must be contiguous and %d-byte aligned"
+                         % (name, align))
 
 
 def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError("%s: kernel launch failed with CUDA error %d"
                            % (name, err))
+
+
+def empty() -> None:
+    """Launch the empty kernel of floor.cu on the current stream: the
+    launch floor of this library."""
+    check(kernels().svtt_empty(stream()), "empty")
+
+
+def spin(ms: float) -> None:
+    """Hold the current stream for `ms` milliseconds with a one-thread
+    kernel (floor.cu)."""
+    check(kernels().svtt_spin(int(ms * 1e6), stream()), "spin")

@@ -1,14 +1,17 @@
 """K4 wrapper: the L/R consistency check (csrc/lr.cu), counterpart of
 stereovision_tpu/ops/pallas/lr_pl.py.
 
-On CUDA tensors lr_consistency_check launches the kernel; on CPU tensors it
-runs the plain version ops.postprocess.lr_consistency_check.  `launches`
-counts kernel launches.  On the half lattice the kernel takes the half
-warp (ops.postprocess.lr_warp_scale).  The maps may carry a leading batch
-dimension: a batch is one launch.
+On CUDA tensors lr_consistency_check launches the kernel (launch); on CPU
+tensors it runs the plain version ops.postprocess.lr_consistency_check.
+`launches` counts kernel launches.  On the half lattice the kernel takes
+the half warp (ops.postprocess.lr_warp_scale).  The maps may carry a
+leading batch dimension: a batch is one launch.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -19,14 +22,37 @@ from . import _lib
 launches = 0
 
 
-def lr_consistency_check(D1: torch.Tensor, D2: torch.Tensor, p: ElasParams):
-    """(..., H, W) float32 D1, D2 -> checked (D1, D2)."""
-    if D1.device.type == "cpu":
-        return plain.lr_consistency_check(D1, D2, p)
+@functools.lru_cache(maxsize=None)
+def _max_width(device: torch.device) -> int:
+    W = ctypes.c_int()
+    with torch.cuda.device(device):
+        _lib.check(_lib.kernels().svtt_lr_max_width(ctypes.byref(W)),
+                   "lr_consistency_check")
+    return W.value
+
+
+def max_width(device: torch.device = None) -> int:
+    """The widest row whose two maps fit one block's shared memory on
+    `device` (the current CUDA device by default); asked once per
+    device."""
+    if device is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _max_width(device)
+
+
+def launch(D1: torch.Tensor, D2: torch.Tensor, p: ElasParams):
+    """Launch the kernel on (..., H, W) float32 D1, D2; returns the checked
+    (D1, D2).  Raises ValueError when W exceeds max_width()."""
     n = _lib.frames(D1, 2)
-    _lib.expect(D1, "D1", torch.float32, D1.shape)
-    _lib.expect(D2, "D2", torch.float32, D1.shape)
+    # the kernel reads and writes single floats
+    _lib.expect(D1, "D1", torch.float32, D1.shape, 4)
+    _lib.expect(D2, "D2", torch.float32, D1.shape, 4)
     H, W = D1.shape[-2:]
+    limit = max_width(D1.device)
+    if W > limit:
+        raise ValueError("lr_consistency_check: rows of %d columns exceed "
+                         "the %d that one block's shared memory holds on "
+                         "this device" % (W, limit))
     O1 = torch.empty_like(D1)
     O2 = torch.empty_like(D2)
     err = _lib.kernels().svtt_lr_check(
@@ -36,3 +62,10 @@ def lr_consistency_check(D1: torch.Tensor, D2: torch.Tensor, p: ElasParams):
     _lib.check(err, "lr_consistency_check")
     _lib.count(globals())
     return O1, O2
+
+
+def lr_consistency_check(D1: torch.Tensor, D2: torch.Tensor, p: ElasParams):
+    """(..., H, W) float32 D1, D2 -> checked (D1, D2)."""
+    if D1.device.type == "cpu":
+        return plain.lr_consistency_check(D1, D2, p)
+    return launch(D1, D2, p)

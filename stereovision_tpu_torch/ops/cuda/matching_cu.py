@@ -1,8 +1,14 @@
 """K1 wrapper: dense matching keys (csrc/matching.cu), counterpart of
 stereovision_tpu/ops/pallas/matching_pl.py.
 
-On CUDA tensors match_keys lays its inputs out for the kernel (layout) and
-launches it (launch); on CPU tensors it runs the plain version
+On CUDA tensors match_keys launches the kernel (launch) on the inputs the
+engine already holds: the (..., 16, H, W) descriptor planes of both images,
+the four plane maps of ops.matching.plane_maps, the (..., D, gh, gw) bool
+grid mask of ops.grid.build_grid_mask, and the resident prior table
+(prior_table).  The kernel finds each output row's matching row and the
+lattice's columns itself and packs the mask's candidate words in shared
+memory, so no torch op runs between plane_maps and the launch but the
+output's allocation.  On CPU tensors match_keys runs the plain version
 ops.matching.match_keys.  `launches` counts kernel launches.  Every
 function takes one frame or a batch of frames (a leading batch dimension
 on every input): a batch is one launch.
@@ -10,6 +16,8 @@ on every input): a batch is one launch.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import threading
 
 import torch
@@ -40,66 +48,67 @@ def prior_table(p: ElasParams, device: torch.device) -> torch.Tensor:
     return t
 
 
-def cell_words(grid_mask: torch.Tensor) -> torch.Tensor:
-    """(..., D, gh, gw) bool -> (..., gh, gw, ceil(D/32)) int32 packed
-    candidate words: bit b of word w is disparity 32 w + b."""
-    D, gh, gw = grid_mask.shape[-3:]
-    nwords = -(-D // 32)
-    m = torch.nn.functional.pad(grid_mask.to(torch.int64),
-                                (0, 0, 0, 0, 0, nwords * 32 - D))
-    weights = torch.bitwise_left_shift(
-        torch.ones(32, dtype=torch.int64, device=m.device),
-        torch.arange(32, device=m.device))
-    words = (m.reshape(*m.shape[:-3], nwords, 32, gh, gw)
-             * weights[:, None, None]).sum(dim=-3)
-    return words.movedim(-3, -1).to(torch.int32).contiguous()
+@functools.lru_cache(maxsize=None)
+def _max_span(device: torch.device, step: int, gs: int, nwords: int) -> int:
+    d_top = ctypes.c_int()
+    with torch.cuda.device(device):
+        _lib.check(_lib.kernels().svtt_match_max_span(
+            step, gs, nwords, ctypes.byref(d_top)), "match_keys")
+    return d_top.value
 
 
-def layout(desc_self: torch.Tensor, desc_other: torch.Tensor,
-           grid_mask: torch.Tensor, p: ElasParams):
-    """The kernel's inputs besides the plane maps: descriptors as uint8
-    (rows, columns, 16), one pixel's descriptor one 16-byte load — A
-    (..., Ho, Wo, 16) on the output lattice, B (..., Ho, W, 16) the full
-    rows its warps read — the packed cell words and the resident prior
-    table."""
-    rows = plain.line_rows(desc_self, p)
-    A = plain.lattice_cols(rows, p).movedim(-3, -1).contiguous()
-    B = plain.line_rows(desc_other, p).movedim(-3, -1).contiguous()
-    return A, B, cell_words(grid_mask), prior_table(p, desc_self.device)
+def max_span(p: ElasParams, device: torch.device = None) -> int:
+    """The largest min(disp_max, W - 3) whose shared-memory window fits a
+    block on `device` (the current CUDA device by default) at p's lattice
+    step, cell size and disparity count; asked once per device and
+    shape."""
+    if device is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _max_span(device, plain.lattice_step(p), p.grid_size,
+                     -(-p.disp_num // 32))
 
 
-def launch(A: torch.Tensor, B: torch.Tensor, words: torch.Tensor,
+def launch(desc_self: torch.Tensor, desc_other: torch.Tensor,
            d_lo: torch.Tensor, d_hi: torch.Tensor, d_plane: torch.Tensor,
-           pvalid: torch.Tensor, prior: torch.Tensor, p: ElasParams,
+           pvalid: torch.Tensor, grid_mask: torch.Tensor,
+           prior: torch.Tensor, p: ElasParams,
            right_image: bool) -> torch.Tensor:
-    """Launch the kernel on layout()'s tensors and the plane maps; returns
-    the (..., Ho, Wo) int32 keys."""
-    n = _lib.frames(A, 3)
-    lead = tuple(A.shape[:-3])
-    Ho, Wo, _ = A.shape[-3:]
-    W = B.shape[-2]
+    """Launch the kernel on the (..., 16, H, W) uint8 descriptor planes,
+    the (..., Ho, Wo) int32 plane maps, the (..., D, gh, gw) bool grid mask
+    and the (D,) int32 prior table; returns the (..., Ho, Wo) int32 keys.
+    Raises ValueError when min(disp_max, W - 3) exceeds max_span(p)."""
+    n = _lib.frames(desc_self, 3)
+    lead = tuple(desc_self.shape[:-3])
+    H, W = desc_self.shape[-2:]
+    Ho, Wo = p.out_shape(W, H)
     s = plain.lattice_step(p)
-    gh, gw, nwords = words.shape[-3:]
     D = p.disp_num
-    _lib.expect(A, "A", torch.uint8, lead + (Ho, Wo, 16))
-    _lib.expect(B, "B", torch.uint8, lead + (Ho, W, 16))
-    _lib.expect(words, "cell_words", torch.int32,
-                lead + (gh, gw, -(-D // 32)))
+    gh, gw = grid_mask.shape[-2:]
+    # the kernel reads the planes and the mask by bytes, the rest by words
+    _lib.expect(desc_self, "desc_self", torch.uint8, lead + (16, H, W), 1)
+    _lib.expect(desc_other, "desc_other", torch.uint8, lead + (16, H, W), 1)
+    _lib.expect(grid_mask, "grid_mask", torch.bool, lead + (D, gh, gw), 1)
     for name, t in (("d_lo", d_lo), ("d_hi", d_hi), ("d_plane", d_plane),
                     ("pvalid", pvalid)):
-        _lib.expect(t, name, torch.int32, lead + (Ho, Wo))
-    _lib.expect(prior, "prior", torch.int32, (D,))
-    if s * (Wo - 1) >= W:
-        raise ValueError("a %d-column lattice of step %d does not fit %d "
-                         "columns" % (Wo, s, W))
+        _lib.expect(t, name, torch.int32, lead + (Ho, Wo), 4)
+    _lib.expect(prior, "prior", torch.int32, (D,), 4)
+    if H < 3:
+        raise ValueError("descriptor planes of %d rows: the matching row "
+                         "clip(v, 2, H - 3) needs 3" % H)
     if gh * p.grid_size <= s * (Ho - 1) or gw * p.grid_size <= s * (Wo - 1):
-        raise ValueError("cell words %s do not cover a %dx%d lattice of "
-                         "step %d" % (tuple(words.shape), Ho, Wo, s))
-    key = torch.empty(lead + (Ho, Wo), dtype=torch.int32, device=A.device)
+        raise ValueError("a %s grid mask does not cover a %dx%d lattice of "
+                         "step %d" % (tuple(grid_mask.shape), Ho, Wo, s))
+    span, limit = min(p.disp_max, W - 3), max_span(p, desc_self.device)
+    if span > limit:
+        raise ValueError("match_keys: min(disp_max, W - 3) = %d exceeds the "
+                         "%d that one block's shared memory holds on this "
+                         "device" % (span, limit))
+    key = torch.empty(lead + (Ho, Wo), dtype=torch.int32,
+                      device=desc_self.device)
     err = _lib.kernels().svtt_match_keys(
-        _lib.ptr(A), _lib.ptr(B), _lib.ptr(words), _lib.ptr(d_lo),
-        _lib.ptr(d_hi), _lib.ptr(d_plane), _lib.ptr(pvalid), _lib.ptr(prior),
-        n, Ho, Wo, W, s, D, nwords, p.grid_size, gh, gw,
+        _lib.ptr(desc_self), _lib.ptr(desc_other), _lib.ptr(grid_mask),
+        _lib.ptr(d_lo), _lib.ptr(d_hi), _lib.ptr(d_plane), _lib.ptr(pvalid),
+        _lib.ptr(prior), n, H, W, Ho, Wo, s, D, p.grid_size, gh, gw,
         plain.prior_offset(p), int(right_image), _lib.ptr(key),
         _lib.stream())
     _lib.check(err, "match_keys")
@@ -116,8 +125,8 @@ def match_keys(desc_self: torch.Tensor, desc_other: torch.Tensor,
     if desc_self.device.type == "cpu":
         return plain.match_keys(desc_self, desc_other, d_lo, d_hi, d_plane,
                                 pvalid, grid_mask, p, right_image)
-    A, B, words, prior = layout(desc_self, desc_other, grid_mask, p)
-    return launch(A, B, words, d_lo, d_hi, d_plane, pvalid, prior, p,
+    return launch(desc_self, desc_other, d_lo, d_hi, d_plane, pvalid,
+                  grid_mask, prior_table(p, desc_self.device), p,
                   right_image)
 
 

@@ -30,6 +30,8 @@ loops over the frames of a batch.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -64,7 +66,10 @@ def line_rows(desc: torch.Tensor, p: ElasParams) -> torch.Tensor:
     return desc[..., torch.as_tensor(rows, device=desc.device), :]
 
 
+@functools.lru_cache(maxsize=None)
 def prior_offset(p: ElasParams) -> int:
+    """The key's cost offset: it keeps every cost + prior positive.  Made
+    once per parameter set (every kernel launch reads it)."""
     return int(max(512, 1 - int(p.prior_table().min())))
 
 

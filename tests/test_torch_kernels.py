@@ -5,9 +5,9 @@ Every test here needs the card: it is marked `cuda` and skips without
 one.  The inputs are one frame of the port's own pipeline on the CPU (held
 against the JAX package by tests/test_torch_ops.py), moved to the card,
 and the hard inputs of tests/hard_inputs.py (held against the JAX package
-by tests/test_torch_hard_inputs.py): the speckle kernel (K3) and the
-support kernel (K2) run each of them twice, and the two runs must agree,
-which a race in their atomics or shared tables would break.
+by tests/test_torch_hard_inputs.py): every kernel runs each of them twice,
+and the two runs must agree, which a race in the atomics or the shared
+tables and windows would break.
 The file imports nothing of JAX, so it also runs where only PyTorch is
 installed; tests/conftest.py imports jax, so leave it out there:
 
@@ -148,10 +148,15 @@ def test_batched_kernels_match_plain_versions(cuda, preset):
         _equal(speckled[i], ccl_cu.remove_small_segments(L1[i].clone(), p))
 
 
+def _outputs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
 def _twice(fn, *args):
     """fn run twice on the same inputs: both runs must agree."""
     first, second = fn(*args), fn(*args)
-    _equal(first, second)
+    for a, b in zip(_outputs(first), _outputs(second)):
+        _equal(a, b)
     return first
 
 
@@ -249,15 +254,159 @@ def test_support_kernel_kitti_random_descriptors(cuda, subsampling):
         _equal(batch[i], support_cu.support_scan(d1[i], d2[i], p))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", hard_inputs.MATCH_CASES,
+                         ids=hard_inputs.case_id)
+@pytest.mark.parametrize("subsampling", [False, True])
+def test_matching_kernel_hard_inputs(cuda, subsampling, case):
+    """Grid masks all, none and randomly set; windows at 0 and D - 1,
+    centres outside [0, D), slopes that switch the prior off; constant and
+    two-level descriptors (ties); disp_max above the width.  Both passes."""
+    W, H, disp_max, mask, desc = case
+    p = app_params(subsampling=subsampling).replace(disp_max=disp_max)
+    desc1, desc2, passes = hard_inputs.match_inputs(
+        W, H, disp_max, mask, desc, subsampling, p.grid_dims(W, H))
+    d1, d2 = torch.as_tensor(desc1).to(cuda), torch.as_tensor(desc2).to(cuda)
+    for (a, b), (tid, planes, gm), right in zip(((d1, d2), (d2, d1)), passes,
+                                                (False, True)):
+        maps = matching.plane_maps(torch.as_tensor(tid).to(cuda),
+                                   torch.as_tensor(planes).to(cuda), p)
+        gm = torch.as_tensor(gm).to(cuda)
+        _equal(_twice(matching_cu.match_keys, a, b, *maps, gm, p, right),
+               matching.match_keys(a, b, *maps, gm, p, right))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subsampling", [False, True])
+def test_matching_kernel_kitti_random_descriptors(cuda, subsampling):
+    """Random descriptors, masks and plane tables at KITTI size, D = 256,
+    both passes, one frame and a batch of 3 (each frame also launched
+    alone, from its slice of the batch)."""
+    p = app_params(subsampling=subsampling)
+    assert p.disp_num == 256
+    W, H = 1242, 375
+    frames = [hard_inputs.match_inputs(W, H, p.disp_max, "random", "random",
+                                       subsampling, p.grid_dims(W, H),
+                                       seed=s) for s in (1, 2, 3)]
+
+    def stack(pick):
+        return torch.as_tensor(np.stack([pick(f) for f in frames])).to(cuda)
+
+    d1, d2 = stack(lambda f: f[0]), stack(lambda f: f[1])
+    for k, (a, b), right in ((0, (d1, d2), False), (1, (d2, d1), True)):
+        maps = matching.plane_maps(stack(lambda f: f[2][k][0]),
+                                   stack(lambda f: f[2][k][1]), p)
+        gm = stack(lambda f: f[2][k][2])
+        one = _twice(matching_cu.match_keys, a[0], b[0],
+                     *(m[0] for m in maps), gm[0], p, right)
+        _equal(one, matching.match_keys(a[0], b[0], *(m[0] for m in maps),
+                                        gm[0], p, right))
+        batch = _twice(matching_cu.match_keys, a, b, *maps, gm, p, right)
+        _equal(batch, matching.match_keys(a, b, *maps, gm, p, right))
+        for i in range(3):
+            _equal(batch[i], matching_cu.match_keys(
+                a[i], b[i], *(m[i] for m in maps), gm[i], p, right))
+
+
+def _span_inputs(p, W, H, span, device):
+    """Descriptors, plane maps and a grid mask for the matching kernel's
+    ceiling: candidates at d = span, span - 1, span - 7 and two small ones
+    in every cell, a window around span - 1, and descriptors that match at
+    d = span - 1 (the first 16 rows), so the farthest columns win."""
+    desc1, desc2 = (torch.as_tensor(x).to(device) for x in
+                    hard_inputs.descriptors(H, W, seed=5, shift=span - 1))
+    gw, gh = p.grid_dims(W, H)
+    gm = np.zeros((p.disp_num, gh, gw), bool)
+    gm[[3, 40, span - 7, span - 1, span]] = True
+    Ho, Wo = p.out_shape(W, H)
+    maps = matching.plane_maps(
+        torch.zeros((Ho, Wo), dtype=torch.int32, device=device),
+        torch.tensor([[0.0, 0.0, span - 0.5, 0.0]], device=device), p)
+    return desc1, desc2, maps, torch.as_tensor(gm).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subsampling", [False, True])
+def test_matching_kernel_span_ceiling(cuda, subsampling):
+    """The widest window min(disp_max, W - 3) that fits one block's shared
+    memory runs exactly, both passes; one column more raises a ValueError
+    before any launch."""
+    p = app_params(subsampling=subsampling).replace(disp_max=20000)
+    span = matching_cu.max_span(p)
+    assert 256 < span < p.disp_max
+    prior = matching_cu.prior_table(p, cuda)
+    W, H = span + 3, 6
+    d1, d2, maps, gm = _span_inputs(p, W, H, span, cuda)
+    for a, b, right in ((d1, d2, False), (d2, d1, True)):
+        keys = _twice(matching_cu.launch, a, b, *maps, gm, prior, p, right)
+        _equal(keys, matching.match_keys(a, b, *maps, gm, p, right))
+        # the window's farthest columns decide keys: zeroed, keys move
+        far = b.clone()
+        if right:
+            far[..., W - 10:W - 2] = 0
+        else:
+            far[..., 2:10] = 0
+        moved = matching_cu.launch(a, far, *maps, gm, prior, p, right)
+        _equal(moved, matching.match_keys(a, far, *maps, gm, p, right))
+        assert not torch.equal(moved, keys)
+    d1, d2, maps, gm = _span_inputs(p, W + 1, H, span, cuda)
+    launched = matching_cu.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        matching_cu.launch(d1, d2, *maps, gm, prior, p, False)
+    assert matching_cu.launches == launched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", hard_inputs.MAP_SIZES)
+@pytest.mark.parametrize("subsampling", [False, True])
+def test_lr_kernel_hard_maps(cuda, subsampling, size):
+    """The codes -1 and -10, warps onto columns 0 and W - 1 and just past
+    them, differences at the threshold and one above; full and half warp;
+    one frame and the maps twice as a batch of 2."""
+    p = app_params(subsampling=subsampling)
+    w, h = size
+    D1, D2 = (torch.as_tensor(m).to(cuda) for m in hard_inputs.lr_maps(
+        h, w, post.lr_warp_scale(p), p.lr_threshold, seed=13))
+    for k, ref in zip(_twice(lr_cu.lr_consistency_check, D1, D2, p),
+                      post.lr_consistency_check(D1, D2, p)):
+        _equal(k, ref)
+    B1, B2 = torch.stack([D1, D2.flip(-1)]), torch.stack([D2, D1.flip(-1)])
+    for k, ref in zip(_twice(lr_cu.lr_consistency_check, B1, B2, p),
+                      post.lr_consistency_check(B1, B2, p)):
+        _equal(k, ref)
+
+
+@pytest.mark.cuda
+def test_lr_kernel_width_ceiling(cuda):
+    """The widest row whose two maps fit one block's shared memory runs
+    exactly; one column more raises a ValueError before any launch."""
+    p = app_params()
+    W = lr_cu.max_width()
+    assert W >= 1242
+    D1, D2 = (torch.as_tensor(m).to(cuda) for m in hard_inputs.lr_maps(
+        7, W, 1.0, p.lr_threshold, seed=3))
+    for k, ref in zip(_twice(lr_cu.launch, D1, D2, p),
+                      post.lr_consistency_check(D1, D2, p)):
+        _equal(k, ref)
+    D1, D2 = (torch.as_tensor(m).to(cuda) for m in hard_inputs.lr_maps(
+        7, W + 1, 1.0, p.lr_threshold, seed=3))
+    launched = lr_cu.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        lr_cu.launch(D1, D2, p)
+    assert lr_cu.launches == launched
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take():
     """The launch functions take only CUDA tensors: a CPU tensor handed
     past the wrapper's device dispatch raises before any build or launch."""
     p = app_params()
     with pytest.raises(ValueError, match="CUDA tensor"):
-        matching_cu.launch(*(torch.zeros((4, 8, 16), dtype=torch.uint8),) * 2,
-                           torch.zeros((1, 1, 8), dtype=torch.int32),
-                           *(torch.zeros((4, 8), dtype=torch.int32),) * 4,
+        matching_cu.launch(*(torch.zeros((16, 8, 32), dtype=torch.uint8),) * 2,
+                           *(torch.zeros((8, 32), dtype=torch.int32),) * 4,
+                           torch.zeros((256, 1, 2), dtype=torch.bool),
                            torch.zeros(256, dtype=torch.int32), p, False)
     with pytest.raises(ValueError, match="CUDA tensor"):
         support_cu.launch(*(torch.zeros((16, 8, 32), dtype=torch.uint8),) * 2,
                           p)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        lr_cu.launch(*(torch.zeros((8, 32)),) * 2, p)
