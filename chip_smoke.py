@@ -49,8 +49,22 @@ half lattice):
      It prints frames/s (the whole run's: all its frames over all its time;
      beside it the 5 batch-aligned windows of bench.py's protocol and their
      median) and two batches of stream_batched under torch.profiler;
+then:
+  7. the command line (python -m stereovision_tpu_torch, called as
+     cli.main in this process) on the 8 frames of phase 5, written as PNGs
+     in KITTI raw layout into a temporary directory (the machine may have
+     neither cv2 nor PIL: the port's own PNG reader decodes them): --dump
+     npz frame by frame, with --batch 8 and with -s 1, each frame's dmap
+     and points equal bit for bit to phase 5's process_frame of that mode;
+     a run with no dump (process_frame(fetch="dmap")), whose 8 per-frame
+     lines and AVG_FPS line must parse; -P (ROBOTICS, both images
+     post-processed) on 2 gray pairs of the scene, whose PGMs must equal
+     byte for byte those the same CLI writes on the CPU; launch counts of
+     every run asserted; and ElasEngine(app_params(), host_filters=False)
+     on one frame, equal to the CPU bit for bit.  Prints `{"cli": ...}`
+     with each run's AVG_FPS as the CLI printed it and its wall time;
 and last:
-  7. one JSON line per kernel result, one `{"kernels": [...]}` line with a
+  8. one JSON line per kernel result, one `{"kernels": [...]}` line with a
      row per kernel and mode, single-frame and batched (each row names the
      design that replaced the kernel's first one), the card line, and
      `{"ok": true, "device": {...}}`.
@@ -60,12 +74,17 @@ package is not beside it.  Every time printed names the card and its power
 limit.
 """
 
+import contextlib
+import io
 import json
 import os
 import re
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -574,6 +593,137 @@ def drive_streams(eng, scenes, outs, card, mode) -> dict:
     return launches
 
 
+def write_png(path, bgr) -> None:
+    """An (H, W, 3) uint8 BGR frame -> an 8-bit RGB PNG, every row
+    unfiltered (filter type 0)."""
+    h, w = bgr.shape[:2]
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           bgr[..., ::-1].reshape(h, 3 * w)], axis=1)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
+                + chunk(b"IEND", b""))
+
+
+FRAME_LINE = re.compile(r"^\(FPS=\d+\.\d{6}\) \((\d+), (\d+)\) "
+                        r"\(t_t=\d+\.\d{6}, dmap_t=\d+\.\d{6}, "
+                        r"pc_t=\d+\.\d{6}\)$")
+
+
+def run_cli(argv, device=None):
+    """cli.main(argv) with the launch counters zeroed just before and read
+    just after -> (exit code, its stdout lines, wall seconds, launches)."""
+    from stereovision_tpu_torch import cli
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    zero_counts()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return rc, buf.getvalue().splitlines(), wall, read_counts()
+
+
+def check_frame_lines(lines, n, shape):
+    """n per-frame lines of the frame's (rows, cols), then AVG_FPS ->
+    the AVG_FPS the CLI printed."""
+    assert len(lines) == n + 1, lines
+    for line in lines[:-1]:
+        m = FRAME_LINE.match(line)
+        assert m and tuple(map(int, m.groups())) == shape, line
+    m = re.match(r"^AVG_FPS=(\d+\.\d{6})$", lines[-1])
+    assert m, lines[-1]
+    return float(m.group(1))
+
+
+def drive_cli(scenes, outs, card) -> None:
+    """Phase 7: the command line on the frames of phase 5 (outs: each
+    mode's process_frame outputs), -P, and host_filters=False; prints the
+    `cli` line."""
+    from stereovision_tpu_torch.engine import bgr_to_gray
+    from stereovision_tpu_torch.io.pgm import save_pgm
+    from stereovision_tpu_torch.models.elas import ElasEngine
+    from stereovision_tpu_torch.params import app_params, robotics_params
+    frames = [(lf, rf) for lf, rf, _ in scenes[1:]]
+    n = len(frames)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        kitti = os.path.join(tmp, "kitti")
+        for cam, k in (("image_02", 0), ("image_03", 1)):
+            os.makedirs(os.path.join(kitti, cam, "data"))
+            for i, pair in enumerate(frames):
+                write_png(os.path.join(kitti, cam, "data", "%010d.png" % i),
+                          pair[k])
+        for name, extra, mode, batches in (
+                ("npz", [], "full", n), ("npz_batch_8", ["--batch", "8"],
+                                         "full", 1),
+                ("npz_subsampled", ["-s", "1"], "subsampled", n),
+                ("no_dump", None, "full", n)):
+            out_dir = os.path.join(tmp, name)
+            argv = ["-k", kitti, "-w", str(W), "-ht", str(H)] + (
+                ["--dump", "npz", "--out_dir", out_dir] + extra
+                if extra is not None else [])
+            rc, lines, wall, launches = run_cli(argv)
+            assert rc == 0, (name, rc)
+            p = app_params(subsampling=mode == "subsampled")
+            avg = check_frame_lines(lines, n, p.out_shape(W, H))
+            assert launches == per_frame_counts(p, batches), (name, launches)
+            if extra is not None:
+                assert sorted(os.listdir(out_dir)) == [
+                    "frame_%06d.npz" % i for i in range(n)]
+                for i, ref in enumerate(outs[mode]):
+                    got = np.load(os.path.join(out_dir, "frame_%06d.npz" % i))
+                    assert np.array_equal(got["dmap"], ref["dmap"]), (name, i)
+                    assert np.array_equal(got["points"], ref["points"]), (
+                        name, i)
+            runs[name] = {"argv": " ".join(a for a in argv[2:]
+                                           if not a.startswith(tmp)),
+                          "frames": n, "AVG_FPS": avg, "wall_s": wall,
+                          "launches": launches}
+
+        # -P: ROBOTICS, both images post-processed, on 2 gray pairs
+        prof = os.path.join(tmp, "profile")
+        os.makedirs(prof)
+        for k, (lf, rf, _) in enumerate(scenes[1:3]):
+            save_pgm(bgr_to_gray(lf), os.path.join(prof, "s%d_left.pgm" % k))
+            save_pgm(bgr_to_gray(rf), os.path.join(prof, "s%d_right.pgm" % k))
+        pgms = {}
+        for dev in (None, "cpu"):
+            out_dir = os.path.join(tmp, "pgm_%s" % dev)
+            rc, lines, wall, launches = run_cli(
+                ["-P", "--profile_dir", prof, "--out_dir", out_dir], dev)
+            assert rc == 0 and lines[-1] == "... done!", lines
+            pgms[dev] = {f: open(os.path.join(out_dir, f), "rb").read()
+                         for f in sorted(os.listdir(out_dir))}
+            if dev is None:
+                runs["profile"] = {"argv": "-P", "pairs": 2, "wall_s": wall,
+                                   "launches": launches}
+                assert launches == per_frame_counts(
+                    robotics_params(postprocess_only_left=False), 2), launches
+        assert sorted(pgms[None]) == ["s%d_%s_disp.pgm" % (k, side)
+                                      for k in range(2)
+                                      for side in ("left", "right")]
+        assert pgms[None] == pgms["cpu"], "-P: the card's PGMs differ"
+        runs["profile"]["pgm_equal_to_cpu"] = "byte for byte"
+
+    # host_filters=False: the snapshot support filters on the card
+    I1, I2 = bgr_to_gray(scenes[1][0]), bgr_to_gray(scenes[1][1])
+    got = ElasEngine(app_params(), W, H, host_filters=False).process(I1, I2)
+    ref = ElasEngine(app_params(), W, H, host_filters=False,
+                     device="cpu").process(I1, I2)
+    for a, b in zip(got, ref):
+        assert torch.equal(a.cpu(), b), "host_filters=False differs from CPU"
+    print(json.dumps({"cli": dict(runs=runs, host_filters_false=(
+        "ElasEngine(app_params(), host_filters=False).process: D1, D2 equal "
+        "to the CPU bit for bit"), card=card)}), flush=True)
+
+
 def kernel_rows(results, launches, suffix) -> list:
     """The `kernels` line's rows of one mode; the matching row averages
     the left and right passes."""
@@ -637,7 +787,7 @@ def main() -> int:
 
     # 4-6. each mode: kernels against their plain versions, the main
     # path, the kernels' batched modes, the streaming paths
-    rows = []
+    rows, outs_by_mode = [], {}
     for mode, suffix, p in (("full", "", app_params()),
                             ("subsampled", "_subsampled",
                              app_params(subsampling=True))):
@@ -651,8 +801,12 @@ def main() -> int:
             launches_b = drive_streams(eng, scenes, outs, card, mode)
         rows += kernel_rows(results, launches, suffix)
         rows += kernel_rows(batched, launches_b, "_batched" + suffix)
+        outs_by_mode[mode] = outs
 
-    # 7. summary lines
+    # 7. the command line
+    drive_cli(scenes, outs_by_mode, card)
+
+    # 8. summary lines
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,9 @@ Public surface:
   ElasParams / robotics_params / middlebury_params / app_params
   ElasEngine            — the core disparity pipeline (models/elas.py)
   StereoEngine          — frames -> disparity + point cloud (engine.py)
+  StereoVision          — the reference pip package's class (engine.py)
+
+Command line: python -m stereovision_tpu_torch --kitti DIR (cli.py).
 """
 
 from .params import (ElasParams, robotics_params, middlebury_params,
@@ -22,7 +25,7 @@ from .params import (ElasParams, robotics_params, middlebury_params,
 
 __all__ = [
     "ElasParams", "robotics_params", "middlebury_params", "app_params",
-    "ElasEngine", "StereoEngine",
+    "ElasEngine", "StereoEngine", "StereoVision",
 ]
 
 
@@ -30,7 +33,7 @@ def __getattr__(name):
     if name == "ElasEngine":
         from .models.elas import ElasEngine
         return ElasEngine
-    if name == "StereoEngine":
-        from .engine import StereoEngine
-        return StereoEngine
+    if name in ("StereoEngine", "StereoVision"):
+        from . import engine
+        return getattr(engine, name)
     raise AttributeError(name)

@@ -19,6 +19,7 @@ kept from reuse by record_stream.
 from __future__ import annotations
 
 import collections
+import os.path as osp
 import threading
 import time
 import warnings
@@ -33,11 +34,24 @@ from .device import resolve_device
 from .hostlib.geometry import host_mid_standalone
 from .io.calibration import Rectification, rectification_from_yaml
 from .models.elas import ElasEngine
-from .ops.reproject import (apply_robot_transform, linear_taps, reproject,
-                            resize_linear)
+from .ops.reproject import (apply_robot_transform, box_centroids,
+                            linear_taps, reproject, resize_linear)
 from .params import ElasParams, app_params
 from .transfer import fetch as to_host
 from .transfer import upload
+
+DEFAULT_CALIB = osp.join(osp.dirname(osp.abspath(__file__)), "data",
+                         "kitti_2011_09_26.yml")
+
+
+def frame_line(out: Dict) -> str:
+    """The reference's per-frame line (stereo_vision.cpp:682-686) for one
+    output of process_frame, stream or stream_batched: "(FPS=...) (rows,
+    cols) (t_t=..., dmap_t=..., pc_t=...)"."""
+    t = out["timings"]
+    return ("(FPS=%f) (%d, %d) (t_t=%f, dmap_t=%f, pc_t=%f)"
+            % (1 / max(t["t_t"], 1e-9), out["dmap"].shape[0],
+               out["dmap"].shape[1], t["t_t"], t["dmap_t"], t["pc_t"]))
 
 
 def bgr_to_gray(img: np.ndarray) -> np.ndarray:
@@ -179,25 +193,28 @@ class StereoEngine:
                       fetch: str = "host") -> Dict:
         """left/right: (H, W[, C]) uint8 BGR(A)/gray frames at engine size.
         Returns dict with dmap (uint8 display disparity), disparity (D1
-        tensor), points ((pc_h*pc_w, 3)) and stage timings.
+        tensor), points ((pc_h*pc_w, 3) NumPy under fetch="host", else the
+        (pc_h, pc_w, 3) tensor) and stage timings.
 
         fetch: "host" copies dmap and points to NumPy; "dmap" copies only
         the display disparity and leaves the cloud on the device; "device"
         leaves everything on the device."""
         _check_fetch(fetch)
         t0 = time.perf_counter()
-        desc1, desc2, d_can = self.elas.stage_support(bgr_to_gray(left),
-                                                      bgr_to_gray(right))
+        g1 = bgr_to_gray(left)
+        g2 = bgr_to_gray(right)
+        td = time.perf_counter()
+        desc1, desc2, d_can = self.elas.stage_support(g1, g2)
         g = self.elas.host_mid(to_host(d_can))
         D1, dmap, points = self._run_dense(desc1, desc2, g)
-        points = points.reshape(-1, 3)
         if fetch in ("host", "dmap"):
             dmap = to_host(dmap)
         tq = time.perf_counter()
         if fetch == "host":
-            points = to_host(points)
+            points = to_host(points).reshape(-1, 3)
         t1 = time.perf_counter()
-        self.timings = {"t_t": t1 - t0, "dmap_t": tq - t0, "pc_t": t1 - tq}
+        # dmap_t starts after the gray conversion, as the JAX engine's
+        self.timings = {"t_t": t1 - t0, "dmap_t": tq - td, "pc_t": t1 - tq}
         return {"dmap": dmap, "disparity": D1, "points": points,
                 "timings": dict(self.timings)}
 
@@ -390,6 +407,64 @@ class StereoEngine:
                     f.cancel()
                 futures_wait(pending)
                 self.elas.close()
+
+    # -- object fusion -------------------------------------------------------
+
+    def object_positions(self, points, boxes) -> np.ndarray:
+        """Mean 3-D position per detection box (reference
+        stereo_vision.cpp:261-277).  points: a cloud as the engine returns
+        it, NumPy or a tensor, (pc_h*pc_w, 3) or (pc_h, pc_w, 3); boxes:
+        (B, 4) [x, y, w, h].  The sums run where the cloud lies.  Returns
+        (B, 3) float32 NumPy."""
+        if not torch.is_tensor(points):
+            points = torch.from_numpy(np.array(points, np.float32))
+        pts = points.reshape(self.pc_h, self.pc_w, 3)
+        return to_host(box_centroids(pts, boxes))
+
+
+class StereoVision:
+    """Drop-in analogue of the reference pip package's Python class
+    `stereo_vision.stereo_vision` (stereo_vision/sv.py:156-192; counterpart
+    of stereovision_tpu/engine.py:500-554): the same constructor surface
+    plus `device`, and generatePointCloud(left, right) -> (width*height, 3)
+    float64 points.  Object tracking needs the detector, which the port
+    does not have yet: objectTracking=True raises."""
+
+    def __init__(self, so_lib_path=None, width=1242, height=375,
+                 defaultCalibFile=True, objectTracking=False, graphics=False,
+                 display=False, scale=1, pc_extrapolation=1,
+                 YOLO_CFG=None, YOLO_WEIGHTS=None, YOLO_CLASSES=None,
+                 CAMERA_CALIBRATION_YAML=None, subsampling=False,
+                 device: Optional[str] = None):
+        if objectTracking:
+            raise NotImplementedError(
+                "objectTracking needs the YOLO detector and the tracker, "
+                "which come with the port's detection slice (ROADMAP "
+                "Queue 1 step 4)")
+        if CAMERA_CALIBRATION_YAML is None:
+            CAMERA_CALIBRATION_YAML = DEFAULT_CALIB
+        self.width, self.height = width, height
+        self.objectTracking = objectTracking
+        self.engine = StereoEngine(CAMERA_CALIBRATION_YAML, width, height,
+                                   scale=scale,
+                                   pc_extrapolation=pc_extrapolation,
+                                   subsampling=subsampling, device=device)
+
+    def generatePointCloud(self, left, right) -> np.ndarray:
+        res = self.engine.process_frame(left, right)
+        self.last = res
+        print(frame_line(res))
+        return res["points"].astype(np.float64)
+
+    def close(self):
+        """Release the engine's worker threads and processes (reference
+        clean(), stereo_vision.cpp:105-114).  Idempotent."""
+        engine = getattr(self, "engine", None)
+        if engine is not None:
+            engine.close()
+
+    def __del__(self):
+        self.close()
 
 
 def _check_fetch(fetch: str) -> None:

@@ -221,3 +221,18 @@ def rectification_from_yaml(path: str, out_width: int, out_height: int,
     rect.XT = c.get("XT", np.zeros((3, 1)))
     return rect
 
+
+def remap_frames(left: np.ndarray, right: np.ndarray,
+                 rect: Rectification):
+    """Apply the undistort+rectify maps to a stereo pair (the reference
+    computes these maps but has the per-frame remap disabled,
+    stereo_vision.cpp:341; provided here as an opt-in for rigs whose
+    frames are not pre-rectified).  Host-side bilinear remap via cv2."""
+    if rect.lmap is None or rect.rmap is None:
+        raise ValueError("Rectification was built without maps; pass "
+                         "compute_maps=True")
+    import cv2
+    lm, rm = rect.lmap, rect.rmap
+    lo = cv2.remap(left, lm[..., 0], lm[..., 1], cv2.INTER_LINEAR)
+    ro = cv2.remap(right, rm[..., 0], rm[..., 1], cv2.INTER_LINEAR)
+    return lo, ro

@@ -50,7 +50,12 @@ class ElasEngine:
     """ELAS pipeline for one image size on one device."""
 
     def __init__(self, params: ElasParams, width: int, height: int,
-                 device: Optional[str] = None):
+                 host_filters: bool = True, device: Optional[str] = None):
+        # host_filters=True: the support filters run on the host with the
+        # reference's sequential in-place semantics (hostlib.raster);
+        # False: their snapshot versions run on the device after K2
+        # (ops.support.support_matches(apply_filters=True))
+        self.host_filters = host_filters
         self.p = params
         self.device = resolve_device(device)
         self.width = int(width)
@@ -90,7 +95,7 @@ class ElasEngine:
     def host_args(self) -> tuple:
         """host_mid_standalone's arguments after d_can."""
         return (self.p, self.width, self.height, self.n_max, self.t_max,
-                self.s_max)
+                self.s_max, self.host_filters)
 
     def host_pool(self, workers: int = 4):
         """Process pool running the host middle free of the GIL (scipy's
@@ -104,7 +109,7 @@ class ElasEngine:
                 self._host_pool = cf.ProcessPoolExecutor(
                     max_workers=workers, mp_context=mp.get_context("spawn"),
                     initializer=_pool_init,
-                    initargs=self.host_args + (True,))
+                    initargs=self.host_args)
             return self._host_pool
 
     def host_mid_parallel(self, d_cans: Sequence[np.ndarray],
@@ -118,12 +123,13 @@ class ElasEngine:
 
     def stage_support(self, I1, I2):
         """(H, W) uint8 gray images (NumPy or tensors) -> (desc1, desc2,
-        d_can) on the engine's device; d_can is the raw (Hc, Wc) int16
-        support grid (the host applies the sequential filters)."""
+        d_can) on the engine's device; d_can is the (Hc, Wc) int16
+        support grid, raw under host_filters (the host applies the
+        sequential filters), else filtered on the device."""
         desc1 = compute_descriptor(upload(I1, self.device))
         desc2 = compute_descriptor(upload(I2, self.device))
-        d_can = support_cu.support_matches(desc1, desc2, self.p,
-                                           apply_filters=False)
+        d_can = support_cu.support_matches(
+            desc1, desc2, self.p, apply_filters=not self.host_filters)
         return desc1, desc2, d_can
 
     def stage_support_batched(self, pairs):
@@ -133,8 +139,8 @@ class ElasEngine:
         desc = compute_descriptor(upload(pairs, self.device))
         desc1 = desc[:, 0].contiguous()
         desc2 = desc[:, 1].contiguous()
-        d_can = support_cu.support_matches(desc1, desc2, self.p,
-                                           apply_filters=False)
+        d_can = support_cu.support_matches(
+            desc1, desc2, self.p, apply_filters=not self.host_filters)
         return desc1, desc2, d_can
 
     # ---- host middle ------------------------------------------------------

@@ -101,3 +101,72 @@ def apply_robot_transform(points: torch.Tensor, XR, XT) -> torch.Tensor:
     XT = torch.as_tensor(XT, dtype=torch.float32,
                          device=points.device).reshape(3)
     return points @ XR.T + XT
+
+
+TREE_WINDOW = 32
+
+
+def _sequential_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum along `dim` one element after another, in float32."""
+    acc = torch.zeros_like(x.select(dim, 0))
+    for k in range(x.shape[dim]):
+        acc = acc + x.select(dim, k)
+    return acc
+
+
+def tree_sum_hw(x: torch.Tensor) -> torch.Tensor:
+    """(..., h, w, c) float32 -> (..., c): the sum over h and w in the order
+    jitted jnp.sum(x, axis=(0, 1)) takes on XLA:CPU, so the two agree bit
+    for bit.  XLA rewrites a reduction whose axes exceed 32 into windows:
+    each axis over 32 is zero-padded to a multiple of 32 (centred, the odd
+    element at the end) and cut into 32-long windows, an axis of 32 or less
+    is one window; each window sums its elements in row-major order; this
+    repeats on the window sums until both axes are 32 or less, and those
+    are summed in row-major order."""
+    while True:
+        h, w, c = x.shape[-3:]
+        lead = x.shape[:-3]
+        if h <= TREE_WINDOW and w <= TREE_WINDOW:
+            return _sequential_sum(x.reshape(*lead, h * w, c), -2)
+        pads, wins = [], []
+        for n in (h, w):
+            m = n if n <= TREE_WINDOW else -(-n // TREE_WINDOW) * TREE_WINDOW
+            pads.append(((m - n) // 2, m - n - (m - n) // 2))
+            wins.append(min(n, TREE_WINDOW))
+        x = torch.nn.functional.pad(x, (0, 0) + pads[1] + pads[0])
+        nh, nw = x.shape[-3] // wins[0], x.shape[-2] // wins[1]
+        k = len(lead)
+        x = x.reshape(*lead, nh, wins[0], nw, wins[1], c).permute(
+            *range(k), k, k + 2, k + 1, k + 3, k + 4)
+        x = _sequential_sum(x.reshape(*lead, nh, nw, wins[0] * wins[1], c),
+                            -2)
+
+
+def box_centroids(points: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """Mean XYZ over each detection box (reference
+    stereo_vision.cpp:261-277; counterpart of
+    stereovision_tpu/ops/reproject.py:44-61).  points: (H, W, 3); boxes:
+    (B, 4) int32 [x, y, w, h], clamped to the frame.  Returns (B, 3)
+    float32 on the cloud's device.
+
+    Each box sums the whole cloud times its 0/1 mask (tree_sum_hw, the JAX
+    function's order), so a non-finite point anywhere in the frame (an
+    invalid pixel reprojects to +-inf) gives inf * 0 = NaN in every box, as
+    in the JAX function."""
+    H, W, _ = points.shape
+    dev = points.device
+    boxes = torch.as_tensor(boxes, dtype=torch.int32).tolist()
+    if not boxes:
+        return torch.zeros((0, 3), dtype=torch.float32, device=dev)
+    u = torch.arange(W, device=dev)[None, :]
+    v = torch.arange(H, device=dev)[:, None]
+    masks, counts = [], []
+    for x, y, w, h in boxes:
+        x0, x1 = min(max(x, 0), W - 1), min(max(x + w, 0), W - 1)
+        y0, y1 = min(max(y, 0), H - 1), min(max(y + h, 0), H - 1)
+        masks.append((u >= x0) & (u < x1) & (v >= y0) & (v < y1))
+        counts.append(max(x1 - x0, 0) * max(y1 - y0, 0))
+    m = torch.stack(masks).to(torch.float32)
+    denom = torch.tensor(counts, dtype=torch.float32, device=dev)
+    return tree_sum_hw(points * m[..., None]) / torch.clamp(denom,
+                                                            min=1.0)[:, None]
