@@ -63,8 +63,29 @@ then:
      every run asserted; and ElasEngine(app_params(), host_filters=False)
      on one frame, equal to the CPU bit for bit.  Prints `{"cli": ...}`
      with each run's AVG_FPS as the CLI printed it and its wall time;
+  8. detection and the C ABI, on the 8 frames of phase 5 at full
+     resolution, with the built-in YOLOv4-tiny cfg (608x608) and a weights
+     file synthesized from seed 0 (synthetic.darknet_weights; the repo
+     holds no weights): detect_batch's rows on the card (cuDNN's TF32 off)
+     against the CPU's (rtol 1e-5, atol 1e-6; the largest differences
+     printed, and the same forward with TF32 on beside them), the
+     detections equal to the CPU's on every frame whose decision margins
+     hold; forward ms for 1 and 8 frames (CUDA events, median of 10) and a
+     profile of one detect_batch; StereoVision(objectTracking=True) over
+     the 8 frames (points equal to phase 5's bit for bit, frame 0's objects
+     equal to the CPU's where the margins hold); cli.main with -o -ycfg
+     -yw on the frames as PNGs, frame by frame and --batch 8 over 11 frames
+     (a last group of 3, padded), each frame's detection lines equal to
+     those made from phase 5's cloud and the card's detections (the
+     float64 means of the finite points of frame 0's boxes printed beside
+     them); object_positions at KITTI size for 1
+     and 8 boxes against one masked torch sum; the C ABI through ctypes in
+     this process (4 frames from new buffers, clouds equal to phase 5's as
+     float64, getColor equal to the left BGRA) and csrc/capi_example.c,
+     built with gcc -ldl and run in a subprocess on the card; launch
+     counts of every path asserted;
 and last:
-  8. one JSON line per kernel result, one `{"kernels": [...]}` line with a
+  9. one JSON line per kernel result, one `{"kernels": [...]}` line with a
      row per kernel and mode, single-frame and batched (each row names the
      design that replaced the kernel's first one), the card line, and
      `{"ok": true, "device": {...}}`.
@@ -610,6 +631,16 @@ def write_png(path, bgr) -> None:
                 + chunk(b"IEND", b""))
 
 
+def write_kitti(root, frames) -> str:
+    """(left, right) frames -> a KITTI raw-layout directory of PNGs."""
+    for cam, k in (("image_02", 0), ("image_03", 1)):
+        os.makedirs(os.path.join(root, cam, "data"))
+        for i, pair in enumerate(frames):
+            write_png(os.path.join(root, cam, "data", "%010d.png" % i),
+                      pair[k])
+    return root
+
+
 FRAME_LINE = re.compile(r"^\(FPS=\d+\.\d{6}\) \((\d+), (\d+)\) "
                         r"\(t_t=\d+\.\d{6}, dmap_t=\d+\.\d{6}, "
                         r"pc_t=\d+\.\d{6}\)$")
@@ -654,12 +685,7 @@ def drive_cli(scenes, outs, card) -> None:
     n = len(frames)
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
-        kitti = os.path.join(tmp, "kitti")
-        for cam, k in (("image_02", 0), ("image_03", 1)):
-            os.makedirs(os.path.join(kitti, cam, "data"))
-            for i, pair in enumerate(frames):
-                write_png(os.path.join(kitti, cam, "data", "%010d.png" % i),
-                          pair[k])
+        kitti = write_kitti(os.path.join(tmp, "kitti"), frames)
         for name, extra, mode, batches in (
                 ("npz", [], "full", n), ("npz_batch_8", ["--batch", "8"],
                                          "full", 1),
@@ -722,6 +748,312 @@ def drive_cli(scenes, outs, card) -> None:
     print(json.dumps({"cli": dict(runs=runs, host_filters_false=(
         "ElasEngine(app_params(), host_filters=False).process: D1, D2 equal "
         "to the CPU bit for bit"), card=card)}), flush=True)
+
+
+def same_detections(a, b, conf_tol) -> bool:
+    """Equal names, boxes and colours; conf within conf_tol."""
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        dx, dy = dict(vars(x)), dict(vars(y))
+        if abs(dx.pop("conf") - dy.pop("conf")) > conf_tol or dx != dy:
+            return False
+    return True
+
+
+def check_rows(det, cpu, frames, card) -> dict:
+    """The card's rows of `frames` (one detect_batch forward, TF32 off)
+    against the CPU's, and the card's detections against the CPU's on
+    every frame whose decision margins hold; and the rows once more with
+    cuDNN's TF32 on, to show what the flag guards against."""
+    from stereovision_tpu_torch.models import yolo
+    rows = det.rows(frames)
+    ref = cpu.rows(frames)
+    diff = np.abs(rows.astype(np.float64) - ref)
+    rel = diff / np.maximum(np.abs(ref), 1e-30)
+    tol = float(diff[..., 5:].max())
+    compared, margins = 0, []
+    for k, f in enumerate(frames):
+        m = yolo.decision_margins(ref[k], rows[k], f.shape[:2])
+        margins.append(min(m.values()))
+        if margins[-1] > 1:
+            compared += 1
+            got = det._rows_to_dets(rows[k], f.shape[:2], 0.5, 0.4)
+            want = cpu._rows_to_dets(ref[k], f.shape[:2], 0.5, 0.4)
+            assert same_detections(got, want, tol), (k, got, want)
+    x = torch.stack([yolo._resize_bilinear(np.ascontiguousarray(
+        f[..., ::-1]), det.size, det.size, det.device) for f in frames])
+    x = (x / torch.full((), 255.0, device=det.device)).permute(0, 3, 1, 2)
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
+                                                     allow_tf32=True):
+        tf32 = torch.cat(det(x.contiguous()), dim=1).cpu().numpy()
+    out = {"frames": len(frames), "rows": list(rows.shape),
+           "max_abs_diff": float(diff.max()),
+           "max_rel_diff": float(rel.max()),
+           "max_abs_diff_scores": tol,
+           "tf32_on_max_abs_diff": float(np.abs(tf32 - ref).max()),
+           "candidates": [int((r[:, 5:] >= 0.5).sum()) for r in rows],
+           "detections": [len(det._rows_to_dets(r, f.shape[:2], 0.5, 0.4))
+                          for r, f in zip(rows, frames)],
+           "least_margin_ratio": margins,
+           "frames_compared_exactly": compared, "card": card}
+    np.testing.assert_allclose(rows, ref, rtol=1e-5, atol=1e-6)
+    return out
+
+
+def forward_times(det, frames, card) -> dict:
+    """The detector's forward (TF32 off) on 1 and on 8 frames already on
+    the card, by CUDA events (median of REPS after a warm-up); detect_batch
+    of the 8 frames by the host clock; a profile of one detect_batch."""
+    from stereovision_tpu_torch.models import yolo
+    out = {}
+    for n in (1, len(frames)):
+        x = torch.stack([yolo._resize_bilinear(np.ascontiguousarray(
+            f[..., ::-1]), det.size, det.size, det.device)
+            for f in frames[:n]]).permute(0, 3, 1, 2).contiguous() / 255
+
+        def fwd():
+            with torch.no_grad(), torch.backends.cudnn.flags(
+                    enabled=True, allow_tf32=False):
+                det(x)
+        out["forward_ms_batch_%d" % n] = event_ms(fwd)
+    ts = []
+    for _ in range(3):
+        t = time.perf_counter()
+        det.detect_batch(frames)
+        ts.append(1e3 * (time.perf_counter() - t))
+    out["detect_batch_%d_host_ms" % len(frames)] = float(np.median(ts))
+    out["profile_detect_batch"] = profile(lambda: det.detect_batch(frames))
+    out["card"] = card
+    return out
+
+
+def detection_lines(eng, dets, points) -> list:
+    """The CLI's lines for one frame's detections, from a cloud on the
+    card."""
+    if not dets:
+        return []
+    pos = eng.object_positions(points, np.array([[d.x, d.y, d.w, d.h]
+                                                 for d in dets]))
+    return ["  %s conf=%.2f XYZ=(%.2f,%.2f,%.2f)" % (d.name, d.conf, *xyz)
+            for d, xyz in zip(dets, pos)]
+
+
+def finite_means(points, dets) -> list:
+    """Each box's float64 mean of the finite points inside it (the boxes
+    clamped as box_centroids clamps them)."""
+    pts = points.reshape(H, W, 3).astype(np.float64)
+    out = []
+    for d in dets:
+        x0, x1 = min(max(d.x, 0), W - 1), min(max(d.x + d.w, 0), W - 1)
+        y0, y1 = min(max(d.y, 0), H - 1), min(max(d.y + d.h, 0), H - 1)
+        box = pts[y0:y1, x0:x1].reshape(-1, 3)
+        box = box[np.isfinite(box).all(axis=1)]
+        out.append(box.mean(axis=0).tolist() if len(box) else None)
+    return out
+
+
+def check_stereo_vision(cfg, weights, cpu, frames, outs, p, card) -> dict:
+    """StereoVision(objectTracking=True) over the frames: the points equal
+    to process_frame's (outs) bit for bit, launches counted, frame 0's
+    objects equal to the CPU detector's where the margins hold."""
+    from stereovision_tpu_torch.engine import StereoVision
+    from stereovision_tpu_torch.models import yolo
+    sv = StereoVision(width=W, height=H, objectTracking=True,
+                      YOLO_CFG=cfg, YOLO_WEIGHTS=weights)
+    torch.cuda.synchronize()
+    zero_counts()
+    objects, t = [], time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        for (lf, rf), ref in zip(frames, outs):
+            pts = sv.generatePointCloud(lf, rf)
+            assert np.array_equal(pts, ref["points"].astype(np.float64))
+            objects.append(sv.last["objects"])
+    wall = time.perf_counter() - t
+    launches = read_counts()
+    assert launches == per_frame_counts(p, len(frames)), launches
+    left = frames[0][0]
+    rows, ref = sv.detector.rows([left]), cpu.rows([left])
+    margin = min(yolo.decision_margins(ref[0], rows[0],
+                                       left.shape[:2]).values())
+    if margin > 1:
+        want = cpu._rows_to_dets(ref[0], left.shape[:2], 0.5, 0.4)
+        assert same_detections(objects[0], want, float(np.abs(
+            rows - ref)[..., 5:].max())), (objects[0], want)
+    sv.close()
+    return {"frames": len(frames), "wall_s": wall, "launches": launches,
+            "points": "equal to process_frame bit for bit, every frame",
+            "objects_per_frame": [len(o) for o in objects],
+            "frame0_margin_ratio": margin,
+            "frame0_objects_equal_to_cpu": margin > 1, "card": card}
+
+
+def check_cli_detection(det, eng, cfg, weights, frames, outs, pts_dev, p,
+                        tmp) -> dict:
+    """cli.main with -o on the frames as PNGs, frame by frame and with
+    --batch 8 over 11 frames (the sequence looped: a full group and a last
+    group of 3, padded with its last frame as stream_batched pads its last
+    batch); each frame's detection lines equal to those made from the
+    card's detections of the same groups and phase 5's cloud."""
+    kitti = write_kitti(os.path.join(tmp, "kitti"), frames)
+    lefts = [lf for lf, _ in frames]
+    n, nb = len(frames), 8 + 3
+    runs = {}
+    for name, extra, n_run, groups, batches in (
+            ("o", [], n, [[i] for i in range(n)], n),
+            ("o_batch_8", ["--batch", "8", "--frames", str(nb)], nb,
+             [list(range(8)), list(range(8, nb)) + [nb - 1] * 5], 2)):
+        argv = ["-k", kitti, "-w", str(W), "-ht", str(H), "-o", "-ycfg",
+                cfg, "-yw", weights] + extra
+        rc, lines, wall, launches = run_cli(argv)
+        assert rc == 0, (name, rc)
+        avg = check_frame_lines([l for l in lines if not l.startswith("  ")],
+                                n_run, p.out_shape(W, H))
+        assert launches == per_frame_counts(p, batches), (name, launches)
+        got = {}
+        for line in lines:
+            if line.startswith("(FPS="):
+                got[len(got)] = []
+            elif line.startswith("  "):
+                got[len(got) - 1].append(line)
+        want, means = {}, {}
+        for g in groups:
+            for i, d in zip(g, det.detect_batch([lefts[i % n] for i in g])):
+                want[i] = detection_lines(eng, d, pts_dev[i % n])
+                means[i] = finite_means(outs[i % n]["points"], d)
+        assert got == want, (name, got, want)
+        runs[name] = {"argv": " ".join(["-o"] + extra), "frames": n_run,
+                      "AVG_FPS": avg, "wall_s": wall, "launches": launches,
+                      "detection_lines_frame_0": got[0],
+                      "finite_point_means_frame_0": means[0]}
+    return runs
+
+
+def time_object_positions(eng, points, card) -> dict:
+    """object_positions (tree_sum_hw, the JAX sum's order) on a KITTI-size
+    cloud on the card, 1 and 8 boxes, against one masked torch sum."""
+    out = {}
+    rng = np.random.default_rng(0)
+    for nb in (1, 8):
+        boxes = np.stack([rng.integers(0, W // 2, nb),
+                          rng.integers(0, H // 2, nb),
+                          rng.integers(W // 60, W // 6, nb),
+                          rng.integers(H // 20, H // 4, nb)], axis=1)
+        out["boxes_%d_ms" % nb] = event_ms(
+            lambda: eng.object_positions(points, boxes))
+        mask = torch.zeros((nb, H, W), device=points.device)
+        out["plain_sum_boxes_%d_ms" % nb] = event_ms(
+            lambda: (points.reshape(H, W, 3)[None]
+                     * mask[..., None]).sum(dim=(1, 2)))
+    out["card"] = card
+    return out
+
+
+def drive_detection(scenes, outs, calib, card) -> None:
+    """Phase 8: detection and the C ABI on the frames of phase 5 (outs:
+    its process_frame outputs at full resolution); prints its lines."""
+    from stereovision_tpu_torch.engine import StereoEngine
+    from stereovision_tpu_torch.models import yolo
+    from stereovision_tpu_torch.params import app_params
+    from stereovision_tpu_torch.synthetic import darknet_weights
+    t = time.perf_counter()
+    frames = [(lf, rf) for lf, rf, _ in scenes[1:]]
+    lefts = [lf for lf, _ in frames]
+    p = app_params()
+    cfg = os.path.join(yolo.DATA_DIR, "yolov4-tiny.cfg")
+    with tempfile.TemporaryDirectory() as tmp:
+        weights = os.path.join(tmp, "synth.weights")
+        darknet_weights(weights, yolo.parse_darknet_cfg(cfg), seed=0)
+        det = yolo.YoloV4Tiny.from_files(cfg, weights)
+        cpu = yolo.YoloV4Tiny.from_files(cfg, weights, device="cpu")
+        print(json.dumps({"detection_rows": check_rows(det, cpu, lefts,
+                                                       card)}), flush=True)
+        print(json.dumps({"detection_times": forward_times(det, lefts,
+                                                           card)}),
+              flush=True)
+        print(json.dumps({"stereo_vision": check_stereo_vision(
+            cfg, weights, cpu, frames, outs, p, card)}), flush=True)
+        pts_dev = [torch.from_numpy(o["points"]).cuda() for o in outs]
+        with StereoEngine(calib, W, H) as eng:
+            runs = check_cli_detection(det, eng, cfg, weights, frames, outs,
+                                       pts_dev, p, tmp)
+            print(json.dumps({"cli_detection": dict(runs=runs, card=card)}),
+                  flush=True)
+            print(json.dumps({"object_positions": time_object_positions(
+                eng, pts_dev[0], card)}), flush=True)
+        print(json.dumps({"capi": drive_capi(frames, outs, p, tmp, card)}),
+              flush=True)
+    print(json.dumps({"phase_8_s": time.perf_counter() - t, "card": card}),
+          flush=True)
+
+
+def drive_capi(frames, outs, p, tmp, card) -> dict:
+    """The C ABI: loaded with ctypes into this process (the join path), 4
+    frames from alternating new buffers, each cloud equal to phase 5's
+    process_frame as float64 and getColor equal to the frame's left BGRA;
+    then csrc/capi_example.c, built with gcc -ldl, in a subprocess on the
+    card."""
+    import ctypes
+    from stereovision_tpu_torch import capi
+    lib = ctypes.CDLL(capi.library_path(), mode=ctypes.RTLD_GLOBAL)
+    lib.generatePointCloud.restype = ctypes.c_void_p
+    lib.generatePointCloud.argtypes = (
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_char_p]
+        + [ctypes.c_int] * 2 + [ctypes.c_bool] * 4 + [ctypes.c_int] * 2
+        + [ctypes.c_char_p] * 3 + [ctypes.c_bool] * 2)
+    lib.getColor.restype = ctypes.c_void_p
+    lib.getColor.argtypes = []
+    lib.clean.restype = None
+    lib.clean.argtypes = []
+    torch.cuda.synchronize()
+    zero_counts()
+    frame_ms = []
+    with contextlib.redirect_stdout(io.StringIO()):
+        for k in range(4):
+            lf, rf = frames[k]
+            bgra = [np.ascontiguousarray(np.concatenate(
+                [f, np.full((H, W, 1), 255, np.uint8)], axis=-1))
+                for f in (lf, rf)]
+            bufs = [ctypes.create_string_buffer(b.tobytes(), b.nbytes)
+                    for b in bgra]
+            t = time.perf_counter()
+            addr = lib.generatePointCloud(
+                ctypes.addressof(bufs[0]), ctypes.addressof(bufs[1]), b"", W,
+                H, True, False, False, False, 1, 1, b"", b"", b"", False,
+                False)
+            frame_ms.append(1e3 * (time.perf_counter() - t))
+            assert addr, "generatePointCloud returned NULL (frame %d)" % k
+            pts = np.ctypeslib.as_array((ctypes.c_double * (H * W * 3))
+                                        .from_address(addr)).reshape(-1, 3)
+            assert np.array_equal(pts, outs[k]["points"].astype(np.float64))
+            del bufs
+            caddr = lib.getColor()
+            assert caddr, "getColor returned NULL (frame %d)" % k
+            colors = np.ctypeslib.as_array((ctypes.c_uint8 * (H * W * 4))
+                                           .from_address(caddr))
+            assert np.array_equal(colors.reshape(H, W, 4), bgra[0])
+    launches = read_counts()
+    lib.clean()
+    assert launches == per_frame_counts(p, 4), launches
+    exe = os.path.join(tmp, "capi_example")
+    subprocess.run(["gcc", os.path.join(REPO, "stereovision_tpu_torch",
+                                        "csrc", "capi_example.c"), "-o",
+                    exe, "-ldl", "-lm"], check=True, timeout=120)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        q for q in sys.path if q and os.path.isdir(q)))
+    t = time.perf_counter()
+    r = subprocess.run([exe, capi.library_path(), str(W), str(H)],
+                       capture_output=True, text=True, timeout=300, env=env)
+    wall = time.perf_counter() - t
+    assert r.returncode == 0 and "CAPI OK" in r.stdout, (
+        r.returncode, r.stdout[-2000:], r.stderr[-4000:])
+    return {"ctypes_frames": 4, "frame_ms": frame_ms,
+            "frame_ms_median_after_first": float(np.median(frame_ms[1:])),
+            "launches": launches,
+            "clouds": "equal to process_frame as float64, every frame",
+            "get_color": "the left BGRA of each frame, new buffers",
+            "plain_c_program": r.stdout.strip(), "plain_c_wall_s": wall,
+            "card": card}
 
 
 def kernel_rows(results, launches, suffix) -> list:
@@ -806,7 +1138,10 @@ def main() -> int:
     # 7. the command line
     drive_cli(scenes, outs_by_mode, card)
 
-    # 8. summary lines
+    # 8. detection and the C ABI
+    drive_detection(scenes, outs_by_mode["full"], calib, card)
+
+    # 9. summary lines
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

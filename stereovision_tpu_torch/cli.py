@@ -9,9 +9,11 @@ Per-frame output lines use the reference's printf format
 parser (test.py) works unchanged.
 
 The engines run on the card; main(argv, device="cpu") runs them on the CPU
-(the keyword is not a command-line flag).  Detection (-o, -ycfg, -yw,
--ycl) and the viewer (-g, --view3d, --record) are parsed but not ported
-yet: a run that sets one of them stops with exit code 2 before any frame.
+(the keyword is not a command-line flag).  -o detects on every left frame
+(YOLOv4-tiny, -ycfg / -yw / -ycl) on a thread of its own, tracks the boxes
+and prints each detection's mean 3-D position.  The viewer (-g, --view3d,
+--record) is parsed but not ported yet: a run that sets one of its flags
+stops with exit code 2 before any frame.
 
 Run: python -m stereovision_tpu_torch --kitti /path/to/kitti_mini
 """
@@ -33,13 +35,9 @@ _PKG_DIR = osp.dirname(osp.abspath(__file__))
 # -P without --profile_dir: the reference's golden pairs, where a checkout
 # of the repository holds them
 DEFAULT_PROFILE_DIR = osp.join(osp.dirname(_PKG_DIR), "datasets", "profile")
-# flags parsed as the JAX CLI parses them, whose modules come with later
-# slices of the port (ROADMAP Queue 1 steps 4 and 5)
-NOT_PORTED = {"object_track": ("-o", "detection"),
-              "yolo_cfg": ("-ycfg", "detection"),
-              "yolo_weights": ("-yw", "detection"),
-              "yolo_classes": ("-ycl", "detection"),
-              "display": ("-g", "live viewer"),
+# flags parsed as the JAX CLI parses them, whose module comes with a later
+# slice of the port (ROADMAP Queue 1 step 5)
+NOT_PORTED = {"display": ("-g", "live viewer"),
               "view3d": ("--view3d", "live viewer"),
               "record": ("--record", "live viewer")}
 
@@ -63,8 +61,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("-w", "--input_image_width", type=int, default=1242)
     ap.add_argument("-ht", "--input_image_height", type=int, default=375)
     ap.add_argument("-o", "--object_track", action="store_true",
-                    help="Enable YOLO object detection + Bayesian tracking "
-                         "(not ported yet)")
+                    help="Enable YOLO object detection + Bayesian tracking")
     ap.add_argument("-ycfg", "--yolo_cfg", type=str, default=None)
     ap.add_argument("-yw", "--yolo_weights", type=str, default=None)
     ap.add_argument("-ycl", "--yolo_classes", type=str, default=None)
@@ -218,15 +215,87 @@ def main(argv=None, device=None) -> int:
             return 1
         seq = kio.KittiRawSequence(args.kitti, width=W, height=H)
 
+    tracker = detector = None
+    if args.object_track:
+        from .models.bayesian import BayesianTracker
+        from .models.yolo import YoloV4Tiny
+        tracker = BayesianTracker()
+        detector = YoloV4Tiny.from_files(args.yolo_cfg, args.yolo_weights,
+                                         args.yolo_classes, device=device)
+
     n_frames = args.frames or len(seq)
-    frames = (seq[i % len(seq)] for i in range(n_frames))
+
+    # Async detection overlap (reference std::async(processYOLO),
+    # stereo_vision.cpp:596-598): a frame's detection is submitted to a
+    # worker thread, with a CUDA stream of its own, when the frame enters
+    # the pipeline, so it runs beside the stereo work; results are
+    # collected in order at emit.  Frames go in groups of max(--batch, 1),
+    # one forward and one fetch a group; a short last group is padded with
+    # its last frame (the extra results are dropped), as stream_batched
+    # pads its last batch.
+    det_pool = None
+    det_futs, det_buf = {}, []
+    det_group = max(args.batch, 1)
+    if detector is not None:
+        import concurrent.futures as cf
+        from .engine import _own_stream
+        det_pool = cf.ThreadPoolExecutor(max_workers=1,
+                                         initializer=_own_stream,
+                                         initargs=(device,))
+
+    def flush_dets():
+        if det_buf:
+            group = [f for _, f in det_buf]
+            while len(group) < det_group:
+                group.append(group[-1])
+            fut = det_pool.submit(detector.detect_batch, group)
+            for k, (j, _) in enumerate(det_buf):
+                det_futs[j] = (fut, k)
+            det_buf.clear()
+
+    def frames_gen():
+        for i in range(n_frames):
+            l, r = seq[i % len(seq)]
+            if det_pool is not None:
+                det_buf.append((i, l))
+                if len(det_buf) >= det_group:
+                    flush_dets()
+            yield l, r
+        if det_pool is not None:
+            flush_dets()
+
+    frames = frames_gen()
 
     if args.dump != "none":
         os.makedirs(args.out_dir, exist_ok=True)
 
+    def track(i, out, left):
+        """The frame's detections (tracked) with their mean 3-D positions
+        printed, and the viewer's cubes."""
+        ent = det_futs.pop(i, None)
+        dets = (ent[0].result()[ent[1]] if ent is not None
+                else detector.detect(left))
+        preds = tracker.get_predicted_boxes()
+        tracker.append(dets)
+        if not dets:
+            return dets, []
+        # under fetch "dmap" out["points"] is the cloud on the device, where
+        # the boxes' sums run
+        pos = eng.object_positions(out["points"],
+                                   np.array([[d.x, d.y, d.w, d.h]
+                                             for d in dets]))
+        for d, xyz in zip(dets, pos):
+            print(f"  {d.name} conf={d.conf:.2f} "
+                  f"XYZ=({xyz[0]:.2f},{xyz[1]:.2f},{xyz[2]:.2f})")
+        return dets, [{"center": tuple(xyz), "size": (1.0, 1.0, 1.0),
+                       "color": (0, 255, 255), "label": d.name}
+                      for d, xyz in zip(dets, pos)]
+
     def handle(i, out, left):
-        # left: the frame that detection and the viewer consume, once
-        # they are ported
+        # left: the frame that detection, and the viewer once it is ported
+        # (with the cubes), consume
+        if detector is not None:
+            track(i, out, left)
         if args.dump == "ply":
             from .viz import save_ply
             save_ply(np.asarray(out["points"]),
@@ -255,28 +324,33 @@ def main(argv=None, device=None) -> int:
               % (PROG, args.preset), file=sys.stderr)
     fps_accum = 0.0
     count = 0
-    # host fetch only when frames must be materialized (dumps)
+    # host fetch only when frames must be materialized (dumps); tracking
+    # alone consumes the cloud on the device (object_positions)
     fetch = "host" if args.dump != "none" else "dmap"
-    with StereoEngine(args.camera_calibration, W, H, scale=args.scale,
-                      pc_extrapolation=args.extrapolate_point_cloud,
-                      subsampling=bool(args.subsampling),
-                      device=device) as eng:
-        if args.batch > 0:
-            for i, out in enumerate(eng.stream_batched(
-                    frames, batch=args.batch, fetch=fetch)):
-                print(frame_line(out))
-                # seq is indexable: the left frame is read again rather
-                # than teeing the consumed iterator
-                handle(i, out, seq[i % len(seq)][0])
-                fps_accum += 1 / max(out["timings"]["t_t"], 1e-9)
-                count += 1
-        else:
-            for i, (left, right) in enumerate(frames):
-                out = eng.process_frame(left, right, fetch=fetch)
-                print(frame_line(out))
-                handle(i, out, left)
-                fps_accum += 1 / max(out["timings"]["t_t"], 1e-9)
-                count += 1
+    try:
+        with StereoEngine(args.camera_calibration, W, H, scale=args.scale,
+                          pc_extrapolation=args.extrapolate_point_cloud,
+                          subsampling=bool(args.subsampling),
+                          device=device) as eng:
+            if args.batch > 0:
+                for i, out in enumerate(eng.stream_batched(
+                        frames, batch=args.batch, fetch=fetch)):
+                    print(frame_line(out))
+                    # seq is indexable: the left frame is read again rather
+                    # than teeing the consumed iterator
+                    handle(i, out, seq[i % len(seq)][0])
+                    fps_accum += 1 / max(out["timings"]["t_t"], 1e-9)
+                    count += 1
+            else:
+                for i, (left, right) in enumerate(frames):
+                    out = eng.process_frame(left, right, fetch=fetch)
+                    print(frame_line(out))
+                    handle(i, out, left)
+                    fps_accum += 1 / max(out["timings"]["t_t"], 1e-9)
+                    count += 1
+    finally:
+        if det_pool is not None:
+            det_pool.shutdown(wait=True, cancel_futures=True)
     if count:
         print("AVG_FPS=%f" % (fps_accum / count))
     return 0

@@ -427,8 +427,9 @@ class StereoVision:
     `stereo_vision.stereo_vision` (stereo_vision/sv.py:156-192; counterpart
     of stereovision_tpu/engine.py:500-554): the same constructor surface
     plus `device`, and generatePointCloud(left, right) -> (width*height, 3)
-    float64 points.  Object tracking needs the detector, which the port
-    does not have yet: objectTracking=True raises."""
+    float64 points.  objectTracking=True detects on every left frame and
+    tracks the boxes; self.last["objects"] holds the frame's detections and
+    the tracker's predicted boxes."""
 
     def __init__(self, so_lib_path=None, width=1242, height=375,
                  defaultCalibFile=True, objectTracking=False, graphics=False,
@@ -436,23 +437,41 @@ class StereoVision:
                  YOLO_CFG=None, YOLO_WEIGHTS=None, YOLO_CLASSES=None,
                  CAMERA_CALIBRATION_YAML=None, subsampling=False,
                  device: Optional[str] = None):
-        if objectTracking:
-            raise NotImplementedError(
-                "objectTracking needs the YOLO detector and the tracker, "
-                "which come with the port's detection slice (ROADMAP "
-                "Queue 1 step 4)")
         if CAMERA_CALIBRATION_YAML is None:
             CAMERA_CALIBRATION_YAML = DEFAULT_CALIB
         self.width, self.height = width, height
-        self.objectTracking = objectTracking
         self.engine = StereoEngine(CAMERA_CALIBRATION_YAML, width, height,
                                    scale=scale,
                                    pc_extrapolation=pc_extrapolation,
                                    subsampling=subsampling, device=device)
+        self.objectTracking = objectTracking
+        self.tracker = None
+        self.detector = None
+        if objectTracking:
+            from .models.bayesian import BayesianTracker
+            from .models.yolo import YoloV4Tiny
+            self.tracker = BayesianTracker()
+            # the JAX class runs without detection where the detector
+            # cannot be built (a missing or mismatched file); the port
+            # says why.  The files are read on the CPU: a fault of the
+            # card propagates from the move below.
+            try:
+                detector = YoloV4Tiny.from_files(
+                    YOLO_CFG, YOLO_WEIGHTS, YOLO_CLASSES, device="cpu")
+            except Exception as err:
+                warnings.warn("objectTracking: no detector (%r); frames "
+                              "are processed without detection" % (err,))
+            else:
+                self.detector = detector.to(self.engine.device)
 
     def generatePointCloud(self, left, right) -> np.ndarray:
         res = self.engine.process_frame(left, right)
         self.last = res
+        if self.objectTracking and self.detector is not None:
+            dets = self.detector.detect(left)
+            preds = self.tracker.get_predicted_boxes()
+            self.tracker.append(dets)
+            self.last["objects"] = dets + preds
         print(frame_line(res))
         return res["points"].astype(np.float64)
 

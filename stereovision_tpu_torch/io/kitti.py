@@ -15,6 +15,7 @@ own resize (ops/reproject.py) instead of jax.image.resize.
 
 from __future__ import annotations
 
+import functools
 import os
 import os.path as osp
 import zipfile
@@ -46,15 +47,17 @@ def _imread(path: str) -> Optional[np.ndarray]:
     return img[..., ::-1] if img.ndim == 3 else img
 
 
-def _shrink_weights(n_in: int, n_out: int) -> np.ndarray:
+@functools.lru_cache(maxsize=8)
+def _shrink_weights(n_in: int, n_out: int) -> torch.Tensor:
     """(n_out, n_in) float64 weights of jax.image.resize "linear" from n_in
     down to n_out samples: the triangle widened by n_in / n_out
-    (antialiased), each row normalised to sum 1."""
+    (antialiased), each row normalised to sum 1.  Made once a shape (a
+    detector resizes every frame to one size) and only read."""
     scale = n_out / n_in
     sample = (np.arange(n_out) + 0.5) / scale - 0.5
     w = np.maximum(0.0, 1.0 - np.abs(sample[:, None]
                                      - np.arange(n_in)[None, :]) * scale)
-    return w / w.sum(axis=1, keepdims=True)
+    return torch.from_numpy(w / w.sum(axis=1, keepdims=True))
 
 
 def _resize_axis(x: torch.Tensor, n_out: int, dim: int) -> torch.Tensor:
@@ -68,9 +71,16 @@ def _resize_axis(x: torch.Tensor, n_out: int, dim: int) -> torch.Tensor:
         taps = linear_taps(n_in, n_out, x.device)
         return (resize_linear(x, cols=taps) if dim == -1
                 else resize_linear(x, rows=taps))
-    wm = torch.as_tensor(_shrink_weights(n_in, n_out))
+    wm = _shrink_weights(n_in, n_out).to(x.device)
     y = torch.movedim(x.double(), dim, -1) @ wm.T
     return torch.movedim(y, -1, dim).float()
+
+
+def resize_float(x: torch.Tensor, w: int, h: int) -> torch.Tensor:
+    """(..., H, W) float32 -> (..., h, w) float32, jax.image.resize's
+    "linear" with no cast back, computed where x lies: the width first,
+    then the height."""
+    return _resize_axis(_resize_axis(x, w, -1), h, -2)
 
 
 def _resize(img: np.ndarray, w: int, h: int) -> np.ndarray:
@@ -81,9 +91,8 @@ def _resize(img: np.ndarray, w: int, h: int) -> np.ndarray:
     except ImportError:
         x = torch.movedim(torch.as_tensor(img, dtype=torch.float32)
                           .reshape(img.shape[:2] + (-1,)), -1, 0)
-        x = _resize_axis(_resize_axis(x, w, -1), h, -2)
-        out = torch.movedim(x, 0, -1).reshape((h, w) + img.shape[2:])
-        return out.numpy().astype(img.dtype)
+        out = torch.movedim(resize_float(x, w, h), 0, -1)
+        return out.reshape((h, w) + img.shape[2:]).numpy().astype(img.dtype)
     return cv2.resize(img, (w, h))
 
 

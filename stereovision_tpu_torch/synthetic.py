@@ -1,4 +1,5 @@
-"""Seeded synthetic stereo scenes with a known disparity.
+"""Seeded synthetic stereo scenes with a known disparity, and seeded
+synthetic darknet weights (the repository holds no YOLO weights file).
 
 A textured left image, a ground-like slanted disparity field below the
 horizon, a fronto-parallel background above it and two fronto-parallel
@@ -48,3 +49,58 @@ def stereo_pair(width: int, height: int, seed: int):
         right[vs[ok], x[ok]] = left[vs[ok], us[ok]]
     bgr = lambda g: np.repeat(g[..., None], 3, axis=-1)  # noqa: E731
     return bgr(left), bgr(right), disp
+
+
+# added to the objectness bias of every yolo head of darknet_weights: as
+# with trained weights, few rows of a frame then score above the 0.5
+# threshold (on the scenes of stereo_pair with seed 0 and the built-in
+# 608x608 cfg, 32 candidate rows and 5 detections a KITTI-size frame; with
+# no shift ~17,000 and ~3,700)
+OBJECTNESS_SHIFT = -1.25
+
+
+def darknet_weights(path: str, sections, seed: int) -> None:
+    """Write a darknet .weights file (version 0.2.5 header, then per conv
+    layer [bn_b, bn_g, bn_mean, bn_var] or [bias], then OIHW weights) for
+    the cfg sections, drawn from default_rng(seed): batch-norm shifts and
+    means ~ N(0, 0.5), scales ~ N(1, 0.3), variances |N(1, 0.3)| + 0.25,
+    weights ~ N(0, 1/sqrt(fan_in)), biases ~ N(0, 0.5), the heads'
+    objectness biases moved by OBJECTNESS_SHIFT."""
+    rng = np.random.default_rng(seed)
+    chunks = [np.array([0, 2, 5], np.int32).tobytes(),
+              np.array([0], np.int64).tobytes()]
+    layers = sections[1:]
+    c_in = int(sections[0].get("channels", 3))
+    chans = []
+    for i, l in enumerate(layers):
+        t = l["type"]
+        if t == "convolutional":
+            k, f = int(l["size"]), int(l["filters"])
+            if l.get("batch_normalize") == "1":
+                chunks += [rng.normal(0, 0.5, f).astype(np.float32),
+                           rng.normal(1, 0.3, f).astype(np.float32),
+                           rng.normal(0, 0.5, f).astype(np.float32),
+                           (np.abs(rng.normal(1, 0.3, f)) + 0.25)
+                           .astype(np.float32)]
+            else:
+                bias = rng.normal(0, 0.5, f).astype(np.float32)
+                head = layers[i + 1] if i + 1 < len(layers) else {}
+                if head.get("type") == "yolo":
+                    per = 5 + int(head.get("classes", 80))
+                    bias[4::per] += np.float32(OBJECTNESS_SHIFT)
+                chunks.append(bias)
+            chunks.append(rng.normal(0, 1.0 / np.sqrt(k * k * c_in),
+                                     (f, c_in, k, k)).astype(np.float32))
+            c = f
+        elif t == "route":
+            refs = [int(x) for x in l["layers"].split(",")]
+            refs = [r if r >= 0 else i + r for r in refs]
+            c = sum(chans[r] for r in refs)
+            if "groups" in l:
+                c //= int(l["groups"])
+        else:
+            c = chans[i - 1] if i else c_in
+        chans.append(c)
+        c_in = c
+    with open(path, "wb") as fh:
+        fh.write(b"".join(np.asarray(c).tobytes() for c in chunks))

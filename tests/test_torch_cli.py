@@ -3,12 +3,13 @@
 process_frame in its three fetch modes (types, shapes, values) and its
 dmap_t stamp; box_centroids
 and object_positions (both cloud layouts, NaN where JAX has NaN);
-StereoVision; and the command line (python -m stereovision_tpu_torch),
-run in process with main(..., device="cpu") beside the JAX package's
-main() on the same KITTI-layout directory: npz, ply and top-view dumps
-and -P's PGMs byte for byte, the per-frame and AVG_FPS lines, --batch,
-live mode on a stand-in camera, the flags not ported yet, and the import
-hygiene of a CLI run.
+StereoVision, with object tracking; and the command line (python -m
+stereovision_tpu_torch), run in process with main(..., device="cpu")
+beside the JAX package's main() on the same KITTI-layout directory: npz,
+ply and top-view dumps and -P's PGMs byte for byte, the per-frame and
+AVG_FPS lines, --batch, -o's detection lines (after the detections'
+decision margins are asserted), live mode on a stand-in camera, the flags
+not ported yet, and the import hygiene of a CLI run.
 """
 
 import dataclasses
@@ -29,6 +30,7 @@ import torch
 import stereovision_tpu.engine as jengine
 import stereovision_tpu.models.elas as jelas
 from stereovision_tpu import cli as jcli
+from stereovision_tpu.models import yolo as jyolo
 from stereovision_tpu.io.pgm import save_pgm as j_save_pgm
 from stereovision_tpu.ops.reproject import box_centroids as j_box_centroids
 
@@ -38,8 +40,9 @@ from stereovision_tpu_torch.convert import params_from_dict
 from stereovision_tpu_torch.engine import (StereoEngine, StereoVision,
                                            bgr_to_gray)
 from stereovision_tpu_torch.io.pgm import save_pgm
+from stereovision_tpu_torch.models import yolo
 from stereovision_tpu_torch.ops.reproject import box_centroids
-from stereovision_tpu_torch.synthetic import stereo_pair
+from stereovision_tpu_torch.synthetic import darknet_weights, stereo_pair
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CALIB = osp.join(ROOT, "stereovision_tpu_torch", "data",
@@ -194,9 +197,103 @@ def test_stereo_vision_matches_jax(capsys):
     del sv
 
 
-def test_stereo_vision_object_tracking_is_refused():
-    with pytest.raises(NotImplementedError, match="detection"):
-        StereoVision(width=W, height=H, objectTracking=True, device="cpu")
+def test_stereo_vision_object_tracking_is_refused(tmp_path, capsys):
+    """A detector that cannot be built (a weights file that does not fit
+    the cfg) is refused with a warning that names the fault; the frames
+    are processed without detection, as in the JAX class."""
+    bad = tmp_path / "bad.weights"
+    bad.write_bytes(np.zeros(40, np.int32).tobytes())
+    with pytest.warns(UserWarning, match="no detector.*ValueError"):
+        sv = StereoVision(width=W, height=H, objectTracking=True,
+                          YOLO_WEIGHTS=str(bad), device="cpu")
+    assert sv.detector is None and sv.tracker is not None
+    left, right, _ = stereo_pair(W, H, seed=5)
+    sv.generatePointCloud(left, right)
+    assert "objects" not in sv.last
+    capsys.readouterr()
+    sv.close()
+
+
+@pytest.fixture(scope="module")
+def yolo_files(tmp_path_factory):
+    """A small yolov4-tiny cfg file (the built-in one at 160x160) and a
+    synthesized weights file for it; no weights file is in the repo."""
+    d = tmp_path_factory.mktemp("yolo")
+    sections = yolo.builtin_yolov4_tiny_cfg()
+    sections[0] = dict(sections[0], width="160", height="160")
+    cfg = str(d / "small.cfg")
+    with open(cfg, "w") as f:
+        for sec in sections:
+            f.write("[%s]\n" % sec["type"] + "".join(
+                "%s=%s\n" % kv for kv in sec.items() if kv[0] != "type"))
+    weights = str(d / "synth.weights")
+    darknet_weights(weights, sections, seed=0)
+    return cfg, weights
+
+
+def assert_margins(files, frames):
+    """Both packages' detectors on the frames: every decision of
+    _rows_to_dets further from its threshold than the rows moved it."""
+    j = jyolo.YoloV4Tiny.from_files(*files)
+    p = yolo.YoloV4Tiny.from_files(*files, device="cpu")
+    imgs = np.stack([jyolo._resize_bilinear(
+        np.ascontiguousarray(f[..., ::-1]), j.size, j.size) for f in frames])
+    ref = np.asarray(jnp.concatenate(
+        j._fwd(jnp.asarray(imgs.astype(np.float32) / 255.0)), axis=1))
+    got = p.rows(frames)
+    for k, f in enumerate(frames):
+        m = yolo.decision_margins(ref[k], got[k], f.shape[:2])
+        assert min(m.values()) > 1, (k, m)
+    return float(np.abs(got - ref)[..., 5:].max())
+
+
+def test_stereo_vision_object_tracking_matches_jax(yolo_files, capsys):
+    """objectTracking=True on 6 frames: the cloud bit for bit, and
+    last["objects"] (detections, then the tracker's predicted boxes) equal
+    to the JAX class's but for conf, within the rows' difference."""
+    frames = [stereo_pair(W, H, seed=s)[:2] for s in (11, 12, 13) * 2]
+    tol = assert_margins(yolo_files, [f[0] for f in frames[:3]])
+    kw = dict(width=W, height=H, objectTracking=True,
+              YOLO_CFG=yolo_files[0], YOLO_WEIGHTS=yolo_files[1])
+    ref = jengine.StereoVision(**kw)
+    sv = StereoVision(**kw, device="cpu")
+    n_objects = 0
+    for left, right in frames:
+        _eq(sv.generatePointCloud(left, right),
+            ref.generatePointCloud(left, right))
+        got, want = sv.last["objects"], ref.last["objects"]
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            ta, tb = dataclasses.asdict(a), dataclasses.asdict(b)
+            assert abs(ta.pop("conf") - tb.pop("conf")) <= tol
+            assert ta == tb
+        n_objects += len(got)
+    assert n_objects > 0
+    assert sv.tracker.mean_error == ref.tracker.mean_error
+    assert sv.detector.device.type == "cpu"
+    capsys.readouterr()
+    sv.close()
+
+
+def test_object_tracking_on_bgra_frames_raises_as_in_jax(yolo_files,
+                                                         capsys):
+    """A reference fault kept (ROADMAP Queue 3): with objectTracking the
+    left frame goes to the detector as given, and a BGRA frame (what the C
+    ABI passes) reaches the first convolution with 4 channels, which
+    raises in both packages."""
+    left, right, _ = stereo_pair(W, H, seed=5)
+    bgra = [np.ascontiguousarray(np.concatenate(
+        [f, np.full((H, W, 1), 255, np.uint8)], axis=-1)) for f in (left,
+                                                                     right)]
+    kw = dict(width=W, height=H, objectTracking=True,
+              YOLO_CFG=yolo_files[0], YOLO_WEIGHTS=yolo_files[1])
+    with pytest.raises(ValueError, match="4 // 1 != 3"):
+        jengine.StereoVision(**kw).generatePointCloud(*bgra)
+    sv = StereoVision(**kw, device="cpu")
+    with pytest.raises(RuntimeError, match="3 channels, but got 4"):
+        sv.generatePointCloud(*bgra)
+    capsys.readouterr()
+    sv.close()
 
 
 # ---- the command line ------------------------------------------------------------
@@ -421,10 +518,14 @@ def test_run_live_on_stand_in_cameras(monkeypatch, capsys, swap):
         assert LINE.match(line).groups() == (str(CH), str(CW))
 
 
-@pytest.mark.parametrize("flags", [["-o"], ["-ycfg", "x.cfg"], ["-yw", "w"],
-                                   ["-ycl", "c"], ["-g"], ["--view3d"],
-                                   ["--record", "r"], ["-o", "-g"]])
+@pytest.mark.parametrize("flags", [["-g"], ["--view3d"], ["--record", "r"],
+                                   ["-o", "-g"], ["-o", "--view3d"],
+                                   ["-ycfg", "x.cfg", "-g"],
+                                   ["-yw", "w", "--record", "r"],
+                                   ["-ycl", "c", "-g", "--view3d"]])
 def test_flags_not_ported_return_2(kitti_dir, monkeypatch, capsys, flags):
+    """The viewer's flags stop the run before any engine is made, with or
+    without the detection flags (which are ported)."""
     def refuse(*args, **kwargs):
         raise AssertionError("an engine was made")
     monkeypatch.setattr(cli, "StereoEngine", refuse)
@@ -433,13 +534,78 @@ def test_flags_not_ported_return_2(kitti_dir, monkeypatch, capsys, flags):
     assert out.out == ""
     err = out.err.strip().splitlines()
     assert len(err) == 1 and "not ported yet" in err[0]
-    for flag in flags:
-        if flag.startswith("-"):
-            assert flag in err[0]
-    assert ("detection" in err[0]) == any(
-        f in ("-o", "-ycfg", "-yw", "-ycl") for f in flags)
-    assert ("live viewer" in err[0]) == any(
-        f in ("-g", "--view3d", "--record") for f in flags)
+    viewer = [f for f in flags if f in ("-g", "--view3d", "--record")]
+    for flag in viewer:
+        assert flag in err[0]
+    assert "live viewer" in err[0] and "detection" not in err[0]
+    for flag in ("-o", "-ycfg", "-yw", "-ycl"):
+        assert flag not in err[0]
+
+
+FPS_LINE = re.compile(r"^\(FPS=[0-9.]+\) (\(\d+, \d+\)) \(t_t=[0-9.]+, "
+                      r"dmap_t=[0-9.]+, pc_t=[0-9.]+\)$")
+DET_LINE = re.compile(r"^  .+ conf=\d\.\d\d XYZ=\([^,]+,[^,]+,[^,]+\)$")
+
+
+def _untimed(text):
+    """stdout without its clocks: a frame line keeps its shape, AVG_FPS
+    its name; the detection lines stay as printed."""
+    out = []
+    for line in text.splitlines():
+        m = FPS_LINE.match(line)
+        out.append("frame " + m.group(1) if m else
+                   "AVG_FPS" if AVG.match(line) else line)
+    return out
+
+
+@pytest.mark.parametrize("batch", [[], ["--batch", "2"]])
+def test_cli_object_track_matches_jax(kitti_dir, jax_main, yolo_files,
+                                      capsys, batch):
+    """-o with -ycfg / -yw: the detection lines under each frame's line
+    equal the JAX CLI's as strings, frame by frame and with --batch 2 (the
+    detection groups of 2, the last one padded), after the margins of the
+    three frames' detections are asserted.  The synthetic frames have
+    invalid pixels (their points are +-inf), so the XYZ printed is not
+    finite, in both (ROADMAP Queue 3)."""
+    frames = [cv2.imread(osp.join(kitti_dir, "image_02", "data",
+                                  "%010d.png" % i)) for i in range(FRAMES)]
+    assert_margins(yolo_files, frames)
+    argv = ["-k", kitti_dir, "-w", str(CW), "-ht", str(CH), "-o", "-ycfg",
+            yolo_files[0], "-yw", yolo_files[1], *batch]
+    assert cli.main(argv, device="cpu") == 0
+    got = capsys.readouterr().out
+    assert jax_main(argv) == 0
+    ref = capsys.readouterr().out
+    assert _untimed(got) == _untimed(ref)
+    dets = [DET_LINE.match(l) for l in got.splitlines() if DET_LINE.match(l)]
+    assert len(dets) >= FRAMES
+    assert _untimed(got)[-1] == "AVG_FPS"
+    assert sum(l.startswith("frame ") for l in _untimed(got)) == FRAMES
+
+
+def test_cli_object_track_collects_in_order(kitti_dir, yolo_files,
+                                            monkeypatch, capsys):
+    """The detection thread gets frames in groups of max(--batch, 1), the
+    last group padded with its last frame; each frame's detections are
+    the ones of that frame."""
+    groups = []
+    real = yolo.YoloV4Tiny.detect_batch
+
+    def spy(self, frames, *args):
+        groups.append([int(f.sum()) for f in frames])
+        return real(self, frames, *args)
+    monkeypatch.setattr(yolo.YoloV4Tiny, "detect_batch", spy)
+    sums = [int(cv2.imread(osp.join(kitti_dir, "image_02", "data",
+                                    "%010d.png" % i)).sum())
+            for i in range(FRAMES)]
+    for batch, want in ((0, [[s] for s in sums]),
+                        (2, [sums[:2], [sums[2], sums[2]]])):
+        groups.clear()
+        assert cli.main(["-k", kitti_dir, "-w", str(CW), "-ht", str(CH),
+                         "-o", "-ycfg", yolo_files[0], "-yw", yolo_files[1],
+                         "--batch", str(batch)], device="cpu") == 0
+        capsys.readouterr()
+        assert groups == want
 
 
 def test_cli_needs_a_source_and_the_card(monkeypatch, capsys, tmp_path):
@@ -462,18 +628,21 @@ def test_module_help_runs():
         assert flag in out.stdout
 
 
-def test_cli_run_imports_no_jax(kitti_dir):
+def test_cli_run_imports_no_jax(kitti_dir, yolo_files):
+    """A run with -o loads no jax."""
     code = (
         "import sys\n"
         "from stereovision_tpu_torch import cli\n"
         "rc = cli.main(['-k', sys.argv[1], '-w', '%d', '-ht', '%d',\n"
-        "               '--frames', '1'], device='cpu')\n"
+        "               '--frames', '1', '-o', '-ycfg', sys.argv[2],\n"
+        "               '-yw', sys.argv[3]], device='cpu')\n"
         "assert rc == 0\n"
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib',\n"
         "                                    'stereovision_tpu'))\n"
         "assert not bad, bad\n" % (CW, CH))
-    out = subprocess.run([sys.executable, "-c", code, kitti_dir], cwd=ROOT,
-                         capture_output=True, text=True, timeout=300)
+    out = subprocess.run([sys.executable, "-c", code, kitti_dir, *yolo_files],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
     assert out.returncode == 0, out.stderr
     assert LINE.match(out.stdout.splitlines()[0])

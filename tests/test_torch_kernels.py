@@ -7,25 +7,33 @@ against the JAX package by tests/test_torch_ops.py), moved to the card,
 and the hard inputs of tests/hard_inputs.py (held against the JAX package
 by tests/test_torch_hard_inputs.py): every kernel runs each of them twice,
 and the two runs must agree, which a race in the atomics or the shared
-tables and windows would break.
+tables and windows would break.  At the end, beside the kernels: the
+detector's rows on the card against the CPU's, and the C ABI driven by a
+C program with no Python of its own (csrc/capi_example.c).
 The file imports nothing of JAX, so it also runs where only PyTorch is
 installed; tests/conftest.py imports jax, so leave it out there:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
 
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
 
+from stereovision_tpu_torch import capi
 from stereovision_tpu_torch.engine import bgr_to_gray
+from stereovision_tpu_torch.models import yolo
 from stereovision_tpu_torch.models.elas import ElasEngine
 from stereovision_tpu_torch.ops import matching, support
 from stereovision_tpu_torch.ops import postprocess as post
 from stereovision_tpu_torch.ops.cuda import (ccl_cu, lr_cu, matching_cu,
                                              support_cu)
 from stereovision_tpu_torch.params import app_params, robotics_params
-from stereovision_tpu_torch.synthetic import stereo_pair
+from stereovision_tpu_torch.synthetic import darknet_weights, stereo_pair
 
 import hard_inputs
 
@@ -410,3 +418,69 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                           p)
     with pytest.raises(ValueError, match="CUDA tensor"):
         lr_cu.launch(*(torch.zeros((8, 32)),) * 2, p)
+
+
+# ---- detection and the C ABI on the card ---------------------------------
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _same_detections(a, b, conf_tol):
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        dx, dy = dict(vars(x)), dict(vars(y))
+        assert abs(dx.pop("conf") - dy.pop("conf")) <= conf_tol, (x, y)
+        assert dx == dy
+
+
+@pytest.mark.cuda
+def test_detector_rows_match_cpu(cuda, tmp_path):
+    """The built-in cfg at 608 on two KITTI-size frames: the card's rows
+    (cuDNN's TF32 off) against the CPU's within rtol 1e-5, atol 1e-6 (the
+    tolerance that holds the port to the JAX package), and the detections
+    equal where the decision margins hold."""
+    sections = yolo.builtin_yolov4_tiny_cfg()
+    wpath = str(tmp_path / "w.weights")
+    darknet_weights(wpath, sections, seed=0)
+    cpu = yolo.YoloV4Tiny(sections, device="cpu")
+    cpu.load_darknet_weights(wpath)
+    card = yolo.YoloV4Tiny(sections, device=cuda)
+    card.load_darknet_weights(wpath)
+    frames = [stereo_pair(1242, 375, seed=s)[0] for s in (1, 2)]
+    got, ref = card.rows(frames), cpu.rows(frames)
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+    tol = float(np.abs(got - ref)[..., 5:].max())
+    for k, f in enumerate(frames):
+        m = yolo.decision_margins(ref[k], got[k], f.shape[:2])
+        if min(m.values()) > 1:
+            _same_detections(card._rows_to_dets(got[k], f.shape[:2], 0.5, 0.4),
+                             cpu._rows_to_dets(ref[k], f.shape[:2], 0.5, 0.4),
+                             tol)
+
+
+def run_plain_c_program(workdir, width, height, timeout):
+    """Build csrc/capi_example.c with gcc -ldl and run it against the C ABI
+    library in a subprocess that has no Python of its own, with this
+    interpreter's path as its PYTHONPATH -> the CompletedProcess."""
+    exe = os.path.join(workdir, "capi_example")
+    r = subprocess.run(["gcc", os.path.join(ROOT, "stereovision_tpu_torch",
+                                            "csrc", "capi_example.c"),
+                        "-o", exe, "-ldl", "-lm"],
+                       capture_output=True, text=True)
+    assert r.returncode == 0, r.stdout + r.stderr
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in [ROOT] + sys.path if p and os.path.isdir(p))
+    return subprocess.run([exe, capi.library_path(), str(width),
+                           str(height)], capture_output=True, text=True,
+                          timeout=timeout, env=env)
+
+
+@pytest.mark.cuda
+def test_capi_plain_c_program(cuda, tmp_path):
+    """A C program with no Python of its own dlopens the C ABI library,
+    which boots CPython, imports the port and runs two frames, each from a
+    new buffer, on the card: finite clouds and each frame's colours."""
+    r = run_plain_c_program(str(tmp_path), 160, 120, timeout=600)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    assert "CAPI OK" in r.stdout and "colors=1,1" in r.stdout
