@@ -84,11 +84,26 @@ then:
      float64, getColor equal to the left BGRA) and csrc/capi_example.c,
      built with gcc -ldl and run in a subprocess on the card; launch
      counts of every path asserted;
+  9. multi-device, on the frames of phase 5, once in each mode:
+     ShardedStereoPipeline (stereovision_tpu_torch/parallel/) at 1242x375
+     on a mesh of stream 2 x tile 2 (cuda:0 four times, or four GPUs where
+     there are), batch 4: rows padded to 376 (and 188 subsampled), the
+     kernels launched once per row stripe (K1, K2, K4) and K3 banded (a
+     stripe labelling per shard and one merge); each cropped frame equal
+     to phase 5's process_frame D1 bit for bit, padding rows -10, launch
+     counts asserted; frames/s; then each stripe launch and K3 banded on
+     one stream group's real inputs against its plain version and against
+     the unsplit launch (exact; K3's plain version the banded one,
+     stripe labels and a merge to a fixpoint; timed as in phase 4).  Then
+     the multi-process launcher (python -m stereovision_tpu_torch.parallel
+     .launch --nproc 2 --local-devices 2 --width 1242 --height 375
+     --steps 2; gloo, each process cuda:0 twice): both processes must
+     report 0 shard errors;
 and last:
-  9. one JSON line per kernel result, one `{"kernels": [...]}` line with a
-     row per kernel and mode, single-frame and batched (each row names the
-     design that replaced the kernel's first one), the card line, and
-     `{"ok": true, "device": {...}}`.
+  10. one JSON line per kernel result, one `{"kernels": [...]}` line with
+     a row per kernel and mode, single-frame, batched and striped (each
+     row names the design that replaced the kernel's first one), the card
+     line, and `{"ok": true, "device": {...}}`.
 
 It exits non-zero, printing no result, when CUDA is not available or the
 package is not beside it.  Every time printed names the card and its power
@@ -100,6 +115,7 @@ import io
 import json
 import os
 import re
+import socket
 import struct
 import subprocess
 import sys
@@ -125,6 +141,13 @@ SOURCES = {"matching": (CSRC + "matching.cu", PALLAS + "matching_pl.py:60"),
            "support": (CSRC + "support.cu", PALLAS + "support_pl.py:50"),
            "lr_check": (CSRC + "lr.cu", PALLAS + "lr_pl.py:36"),
            "speckle_ccl": (CSRC + "ccl.cu", PALLAS + "ccl_pl.py:82")}
+# the sharded modes: row stripes (K1, K2, K4) and K3 banded
+STRIPED = {"matching": PALLAS + "matching_pl.py:259",
+           "support": PALLAS + "support_pl.py:146",
+           "lr_check": PALLAS + "lr_pl.py:122",
+           "speckle_ccl": PALLAS + "ccl_pl.py:260"}
+SHARDED_BATCH = 4            # phase 9: frames a step, over 2 stream groups
+SHARDED_STEPS = 3            # ... timed steps after the checked one
 # the kernels whose first design was replaced, and by what
 REDESIGNED = {"support": "shared F(x, d) table, reads the descriptor planes",
               "speckle_ccl": "block-local union-find, path compression",
@@ -133,6 +156,7 @@ REDESIGNED = {"support": "shared F(x, d) table, reads the descriptor planes",
                           "mask",
               "lr_check": "a row a block, both rows in shared memory"}
 BACK_TO_BACK = 100           # launches timed between one pair of events
+BANDED_QUEUE = 40            # ... of K3 banded (~11 launches a call)
 SPIN_MS = 50.0               # how long the spin kernel holds the stream
 SPIN_TRIES = 3               # ... at first; 4x longer at each retry
 
@@ -383,8 +407,13 @@ def run_checks(checks, card, mode, plain_reps=REPS) -> dict:
             r["frames_differing_from_single_launches"] = sum(
                 compare(tuple(o[i] for o in outs), single)[0] > 0
                 for i, single in enumerate(c["singles"]()))
+        if "unsplit" in c:
+            r["mismatches_vs_unsplit"] = compare(k_out, c["unsplit"]())[0]
+            r["unsplit_queued_ms"] = launch_times(
+                c["unsplit"], "%s unsplit (%s)" % (name, mode))["queued_ms"]
         times = launch_times(c.get("launch", c["kernel"]),
-                             "%s (%s)" % (name, mode))
+                             "%s (%s)" % (name, mode),
+                             c.get("queue", BACK_TO_BACK))
         r.update(ms=times.pop("event_ms"), **times,
                  wrapper_ms=event_ms(c["kernel"]),
                  plain_ms=event_ms(c["plain"], plain_reps),
@@ -396,6 +425,9 @@ def run_checks(checks, card, mode, plain_reps=REPS) -> dict:
             name, mode)
         assert not r.get("frames_differing_from_single_launches"), (
             "%s (%s): the batched launch differs from single-frame launches"
+            % (name, mode))
+        assert not r.get("mismatches_vs_unsplit"), (
+            "%s (%s): the striped launch differs from the unsplit one"
             % (name, mode))
     return results
 
@@ -446,6 +478,7 @@ def wrappers() -> dict:
 def zero_counts() -> None:
     for m in wrappers().values():
         m.launches = 0
+    wrappers()["speckle_ccl"].merges = 0
 
 
 def read_counts() -> dict:
@@ -1056,9 +1089,219 @@ def drive_capi(frames, outs, p, tmp, card) -> dict:
             "card": card}
 
 
-def kernel_rows(results, launches, suffix) -> list:
+def sharded_mesh():
+    """Phase 9's mesh: stream 2 x tile 2 over four GPUs where there are,
+    else over cuda:0 four times."""
+    from stereovision_tpu_torch.parallel.mesh import make_mesh
+    n = torch.cuda.device_count()
+    devs = ([torch.device("cuda", i) for i in range(4)] if n >= 4
+            else [torch.device("cuda", 0)] * 4)
+    return make_mesh(devices=devs, stream=2, tile=2)
+
+
+def drive_sharded(scenes, outs, card, mode, p):
+    """Phase 9 for one mode: ShardedStereoPipeline over the first 4
+    frames of phase 5 (outs: its process_frame outputs), each cropped D1
+    equal to phase 5's, padding rows -10, launch counts; frames/s; then
+    the stripe launches against their plain versions and the unsplit
+    launches (check_stripes).  Returns (result lines, launch counts)."""
+    from stereovision_tpu_torch.engine import bgr_to_gray
+    from stereovision_tpu_torch.ops.cuda import ccl_cu
+    from stereovision_tpu_torch.parallel.shard import ShardedStereoPipeline
+    mesh = sharded_mesh()
+    B = SHARDED_BATCH
+    L = np.stack([bgr_to_gray(lf) for lf, _, _ in scenes[1:B + 1]])
+    R = np.stack([bgr_to_gray(rf) for _, rf, _ in scenes[1:B + 1]])
+    with ShardedStereoPipeline(p, W, H, mesh) as pipe:
+        pipe.run(L, R)                     # warm-up: the pool starts
+        torch.cuda.synchronize()
+        zero_counts()
+        D1, D2 = pipe.run(L, R)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        merges = ccl_cu.merges
+        Ho = pipe.Ho
+        assert D1.shape == (B, Ho + pipe.pad_out, pipe.Wo), D1.shape
+        assert bool((D1[:, Ho:] == -10).all()) and bool(
+            (D2[:, Ho:] == -10).all()), "padding rows are not -10"
+        for i in range(B):
+            assert torch.equal(D1[i, :Ho], outs[i]["disparity"]), (
+                "sharded frame %d differs from process_frame" % i)
+        t = time.perf_counter()
+        for _ in range(SHARDED_STEPS):
+            pipe.run(L, R)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        n_s, n_t = mesh.shape["stream"], mesh.shape["tile"]
+        # one launch a stripe: every stream group's 2 stripes (K1 two
+        # passes); K3 on D1 only (postprocess_only_left), one merge a group
+        expect = {"matching": 2 * n_s * n_t, "support": n_s * n_t,
+                  "lr_check": n_s * n_t, "speckle_ccl": n_s * n_t}
+        print(json.dumps({"sharded": {
+            "mode": mode, "mesh": mesh.shape,
+            "devices": [[str(d) for d in row] for row in mesh.devices],
+            "batch": B, "pad_in": pipe.pad_in, "pad_out": pipe.pad_out,
+            "padded_output": list(D1.shape), "steps": SHARDED_STEPS,
+            "frames_per_s": SHARDED_STEPS * B / wall,
+            "step_ms": 1e3 * wall / SHARDED_STEPS, "launches": launches,
+            "speckle_ccl_merges": merges,
+            "equal_to_process_frame": "every frame's D1 bit for bit, "
+                                      "padding rows -10",
+            "card": card}}), flush=True)
+        assert launches == expect and merges == n_s, (launches, merges)
+        results = check_stripes(pipe, mesh.group(0), L[:B // n_s],
+                                R[:B // n_s], card, mode)
+    return results, launches
+
+
+def check_stripes(pipe, group, L, R, card, mode) -> dict:
+    """Each kernel's sharded mode over one stream group (1 x tile) on its
+    real inputs (the group's frames through the pipeline's padded
+    engine): the stripe launches of K2, K1 (both passes) and K4, and K3
+    banded, against the plain version and the unsplit launch, exact.  The
+    bound counts each stripe's input rows once (K2's slabs overlap by a
+    few rows; K1 reads one B-plane row an output row) and each output
+    once."""
+    from stereovision_tpu_torch.ops import matching, postprocess, support
+    from stereovision_tpu_torch.ops.cuda import (ccl_cu, lr_cu,
+                                                 matching_cu, support_cu)
+    from stereovision_tpu_torch.parallel import ctx
+    from stereovision_tpu_torch.transfer import upload
+    e, p = pipe.engine, pipe.p
+    dev = group.devices[0, 0]
+    B = len(L)
+    Ho, Wo, out_pad = pipe.Ho, pipe.Wo, pipe.pad_out
+
+    def striped(fn):
+        def run():
+            with ctx.kernel_mesh(group):
+                return fn()
+        return run
+
+    pairs = np.stack([pipe._pad_frames(L), pipe._pad_frames(R)], axis=1)
+    desc1, desc2, d_can = striped(lambda: e.stage_support_batched(
+        pairs, device=dev))()
+    geo = e.unpack_geometry(upload(pipe._host_geometry_packed(
+        d_can.cpu().numpy()), dev))
+    (tid_l, pl_l, gm_l), (tid_r, pl_r, gm_r) = e.dense_inputs(*geo)
+    maps_l = matching.plane_maps(tid_l, pl_l, p)
+    maps_r = matching.plane_maps(tid_r, pl_r, p)
+
+    def padded(t):
+        return torch.nn.functional.pad(t, (0, 0, 0, out_pad), value=-1)
+
+    D1, D2 = striped(lambda: (
+        matching_cu.compute_disparity(desc1, desc2, padded(tid_l), pl_l,
+                                      gm_l, p, False, H, out_pad),
+        matching_cu.compute_disparity(desc2, desc1, padded(tid_r), pl_r,
+                                      gm_r, p, True, H, out_pad)))()
+    L1, _ = striped(lambda: lr_cu.lr_consistency_check(D1, D2, p))()
+    torch.cuda.synchronize()
+    prior = matching_cu.prior_table(p, dev)
+    with ctx.kernel_mesh(group):
+        c_ranges = ctx.row_ranges(support.candidate_count(p, H))
+        o_ranges = ctx.row_ranges(Ho)
+        band = ctx.row_ranges(Ho + out_pad)[0][1]
+    slabs = [support.slab_rows(p, H, lo, hi - lo) for lo, hi in c_ranges]
+    support_bytes = B * sum(2 * 16 * (hi - lo) * W + 8 * (c1 - c0) * W * 4
+                            for (lo, hi), (c0, c1) in zip(slabs, c_ranges))
+    gw = gm_l.shape[-1]
+    # as the unsplit bound: a stripe's output rows each read one row of
+    # the A planes at the lattice's columns and one full row of the B
+    # planes (row clip(s y, 2, H - 3): every s-th row of its slab), its
+    # cell rows of the grid mask, four maps and the keys
+    match_bytes = 0
+    for y0, y1 in o_ranges:
+        g0, g1 = matching.stripe_rows(p, H, y0, y1)[1]
+        rows = y1 - y0
+        match_bytes += (B * (rows * Wo * 16 + rows * W * 16
+                             + p.disp_num * (g1 - g0) * gw
+                             + 5 * rows * Wo * 4) + p.disp_num * 4)
+
+    def candidates(maps, gm, right_image):
+        return sum(n_candidates(p, [m[i] for m in maps], gm[i], right_image)
+                   for i in range(B))
+
+    Hp = Ho + out_pad
+    checks = {
+        "support": dict(
+            kernel=striped(lambda: support_cu.support_scan(desc1, desc2, p,
+                                                           H)),
+            unsplit=lambda: support_cu.launch(desc1, desc2, p, H),
+            plain=lambda: support.support_scan(desc1, desc2, p, H),
+            nbytes=support_bytes, ops=B * support_ops(p)),
+        "matching_left": dict(
+            kernel=striped(lambda: matching_cu.match_keys(
+                desc1, desc2, *maps_l, gm_l, p, False, H)),
+            unsplit=lambda: matching_cu.launch(desc1, desc2, *maps_l, gm_l,
+                                               prior, p, False, H),
+            plain=lambda: matching.match_keys(desc1, desc2, *maps_l, gm_l,
+                                              p, False, H),
+            nbytes=match_bytes, ops=candidates(maps_l, gm_l, False) * 32),
+        "matching_right": dict(
+            kernel=striped(lambda: matching_cu.match_keys(
+                desc2, desc1, *maps_r, gm_r, p, True, H)),
+            unsplit=lambda: matching_cu.launch(desc2, desc1, *maps_r, gm_r,
+                                               prior, p, True, H),
+            plain=lambda: matching.match_keys(desc2, desc1, *maps_r, gm_r,
+                                              p, True, H),
+            nbytes=match_bytes, ops=candidates(maps_r, gm_r, True) * 32),
+        "lr_check": dict(
+            kernel=striped(lambda: lr_cu.lr_consistency_check(D1, D2, p)),
+            unsplit=lambda: lr_cu.launch(D1, D2, p),
+            plain=lambda: postprocess.lr_consistency_check(D1, D2, p),
+            nbytes=B * 4 * Hp * Wo * 4, ops=B * 2 * Hp * Wo * 8),
+        "speckle_ccl": dict(
+            kernel=striped(lambda: ccl_cu.remove_small_segments(L1, p)),
+            unsplit=lambda: ccl_cu.whole_frame(L1, p),
+            plain=lambda: postprocess.remove_small_segments_banded(L1, p,
+                                                                   band),
+            nbytes=B * 2 * Hp * Wo * 4, ops=B * Hp * Wo * 16,
+            # ~11 launches a call: 100 calls would fill the device's
+            # queue of pending launches, and the host would wait for the
+            # spin to end
+            queue=BANDED_QUEUE),
+    }
+    return run_checks(checks, card, "%s, striped over %d, batch %d"
+                      % (mode, group.shape["tile"], B), 3)
+
+
+def free_port() -> int:
+    """A TCP port on localhost that no one listens on now."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def drive_launcher(card) -> None:
+    """Phase 9's multi-process run: the launcher with two processes of two
+    local devices (cuda:0 twice each) at 1242x375, meeting on a free port
+    (two checkouts may run this at once); both must report 0 shard
+    errors."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "launch.json")
+        t = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "stereovision_tpu_torch.parallel.launch",
+             "--nproc", "2", "--local-devices", "2", "--width", str(W),
+             "--height", str(H), "--steps", "2", "--port",
+             str(free_port()), "--out", out],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t
+        assert r.returncode == 0, (r.returncode, r.stdout[-4000:],
+                                   r.stderr[-4000:])
+        with open(out) as f:
+            res = json.load(f)
+    print(json.dumps({"launcher": {"processes": res, "wall_s": wall,
+                                   "card": card}}), flush=True)
+    assert len(res) == 2 and all(x["shard_errors"] == 0 for x in res), res
+
+
+def kernel_rows(results, launches, suffix, striped=False) -> list:
     """The `kernels` line's rows of one mode; the matching row averages
-    the left and right passes."""
+    the left and right passes.  striped: phase 9's sharded modes (K1, K2,
+    K4 in row stripes, K3 banded), which replace the Pallas kernels'
+    sharded modes."""
     rows = []
     for name in ("matching", "support", "lr_check", "speckle_ccl"):
         if name == "matching":
@@ -1069,8 +1312,12 @@ def kernel_rows(results, launches, suffix) -> list:
         else:
             r = results[name]
         source, replaces = SOURCES[name]
-        rows.append({"name": name + suffix, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[name],
+        tag = ("_banded" if name == "speckle_ccl" else "_striped") \
+            if striped else ""
+        rows.append({"name": name + tag + suffix, "route": "cuda",
+                     "source": source,
+                     "replaces": STRIPED[name] if striped else replaces,
+                     "launches": launches[name],
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"], "library_ms": None})
@@ -1141,7 +1388,19 @@ def main() -> int:
     # 8. detection and the C ABI
     drive_detection(scenes, outs_by_mode["full"], calib, card)
 
-    # 9. summary lines
+    # 9. multi-device: the sharded pipeline in both modes, the launcher
+    t = time.perf_counter()
+    for mode, suffix, p in (("full", "", app_params()),
+                            ("subsampled", "_subsampled",
+                             app_params(subsampling=True))):
+        striped, launches_s = drive_sharded(scenes, outs_by_mode[mode], card,
+                                            mode, p)
+        rows += kernel_rows(striped, launches_s, suffix, striped=True)
+    drive_launcher(card)
+    print(json.dumps({"phase_9_s": time.perf_counter() - t, "card": card}),
+          flush=True)
+
+    # 10. summary lines
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

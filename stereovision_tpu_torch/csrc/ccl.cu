@@ -45,6 +45,19 @@
 // frame's last row, so roots, and the per-root sizes, never cross frames.
 // Label reads in global memory bypass L1 (__ldcg), so a thread sees the
 // roots that other SMs have just written.
+//
+// Banded (the sharded mode of ccl_pl.py:260-381 and :423-475, under a
+// mesh with more than one 'tile' shard): each shard labels its own row
+// stripe (svtt_speckle_stripe: local and border on the stripe, whose
+// frames may be a view, then its labels moved to the frame's global
+// linear indices, as _banded_labels adds band * Hb * Wp, so that every
+// parent stays a smaller index than its child and no root points across
+// a stripe); the stripes' label buffers, laid side by side, form the
+// frame's forest, which svtt_speckle_merge completes on one device: the
+// border pass restricted to the pixel pairs across stripe edges (the
+// counterpart of _merge_bands), then count (sizes zeroed first: roots may
+// lie in any stripe) and apply over the whole frame.  The partition is
+// the whole-frame launch's.
 
 #include <cuda_runtime.h>
 
@@ -115,9 +128,11 @@ __device__ void unite_global(int* L, int a, int b) {
     }
 }
 
-// Block (32, 16) on tile (blockIdx.x, blockIdx.y) of frame blockIdx.z.
+// Block (32, 16) on tile (blockIdx.x, blockIdx.y) of frame blockIdx.z;
+// D's frames lie fstride floats apart, L's H W; size may be null (not
+// zeroed).
 __global__ void ccl_local(const float* __restrict__ D, int H, int W,
-                          float thr, int* __restrict__ L,
+                          long long fstride, float thr, int* __restrict__ L,
                           int* __restrict__ size) {
     __shared__ int S[kTileH * kTileW];
     __shared__ float Ds[kTileH * kTileW];
@@ -128,7 +143,8 @@ __global__ void ccl_local(const float* __restrict__ D, int H, int W,
     const bool in = u < W && v < H;
     const size_t row0 = (size_t)blockIdx.z * H + v0;  // tile's first row
     const size_t i = (row0 + ty) * W + u;
-    const float d = in ? D[i] : -1.f;
+    const float d =
+        in ? D[blockIdx.z * fstride + (size_t)(v0 + ty) * W + u] : -1.f;
     S[t] = t;
     Ds[t] = d;
     __syncthreads();
@@ -143,14 +159,15 @@ __global__ void ccl_local(const float* __restrict__ D, int H, int W,
     if (!in) return;
     const int r = find_shared(S, t);
     L[i] = (int)((row0 + r / kTileW) * W + u0 + r % kTileW);
-    if (r == t) size[i] = 0;
+    if (r == t && size) size[i] = 0;
 }
 
 // One thread an edge across a tile border, per frame: first the bottom
 // rows of all tile rows but the frame's last (W edges each), then the
-// right columns of all tile columns but the last (H edges each).
+// right columns of all tile columns but the last (H edges each).  D's
+// frames lie fstride floats apart, L's H W.
 __global__ void ccl_border(const float* __restrict__ D, int frames, int H,
-                           int W, float thr, int* L) {
+                           int W, long long fstride, float thr, int* L) {
     const int tiles_y = (H + kTileH - 1) / kTileH;
     const int tiles_x = (W + kTileW - 1) / kTileW;
     const long long horiz = (long long)(tiles_y - 1) * W;
@@ -170,7 +187,35 @@ __global__ void ccl_border(const float* __restrict__ D, int frames, int H,
         step = 1;
     }
     const int i = (int)((b * H + v) * W + u);
-    if (connected(D[i], D[i + step], thr)) unite_global(L, i, i + step);
+    const size_t di = b * fstride + (size_t)v * W + u;
+    if (connected(D[di], D[di + step], thr)) unite_global(L, i, i + step);
+}
+
+// A stripe's forest, labelled by the stripe's own linear indices, moved to
+// the batch's: entry j = (b H + v) W + u of frame b of the stripe (H rows)
+// becomes ((frame0 + b) Hf + row0 + v) W + u in a batch of frames of Hf
+// rows, whose rows from row0 of frames from frame0 on the stripe holds.
+// The map is increasing, so parents stay smaller than their children.
+__global__ void ccl_globalize(int n, int H, int W, int Hf, int row0,
+                              int frame0, int* L) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    const int j = L[i];
+    const int per = H * W;
+    L[i] = ((frame0 + j / per) * Hf + row0) * W + j % per;
+}
+
+// One thread a pixel pair across a stripe edge: for each frame, each edge
+// row e = k * rows (0 < e < H) and column u, pixel (e - 1, u) with (e, u).
+__global__ void ccl_merge(const float* __restrict__ D, int frames, int H,
+                          int W, int rows, int edges, float thr, int* L) {
+    const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (k >= (long long)frames * edges * W) return;
+    const long long b = k / ((long long)edges * W);
+    const int e = (int)(k / W % edges + 1) * rows;
+    const int u = (int)(k % W);
+    const int i = (int)((b * H + e - 1) * W + u);
+    if (connected(D[i], D[i + W], thr)) unite_global(L, i, i + W);
 }
 
 // The forest is final here.  Each pixel compresses its own entry only: a
@@ -214,10 +259,64 @@ extern "C" int svtt_speckle(const void* D, int frames, int H, int W,
         ((long long)(tiles_y - 1) * W + (long long)H * (tiles_x - 1));
     int* L = (int*)labels;
     ccl_local<<<dim3(tiles_x, tiles_y, frames), dim3(kTileW, kTileH), 0,
-                s>>>((const float*)D, H, W, thr, L, (int*)size);
+                s>>>((const float*)D, H, W, (long long)H * W, thr, L,
+                     (int*)size);
     if (edges > 0)
         ccl_border<<<(unsigned)((edges + 255) / 256), 256, 0, s>>>(
-            (const float*)D, frames, H, W, thr, L);
+            (const float*)D, frames, H, W, (long long)H * W, thr, L);
+    const int flat = (n + 255) / 256;
+    ccl_count<<<flat, 256, 0, s>>>(n, L, (int*)size);
+    ccl_apply<<<flat, 256, 0, s>>>((const float*)D, L, (const int*)size, n,
+                                   speckle, (float*)out);
+    return (int)cudaGetLastError();
+}
+
+// A row stripe of `frames` maps: rows [row0, row0 + H) of frames frame0,
+// frame0 + 1, ... of a batch of frames of Hf rows, the stripe's frames
+// fstride floats apart in D.  labels: (frames H W,) int32, the stripe's
+// forest in the batch's global linear indices (see ccl_globalize); no
+// sizes.
+extern "C" int svtt_speckle_stripe(const void* D, int frames, int H, int W,
+                                   long long fstride, float thr, int Hf,
+                                   int row0, int frame0, void* labels,
+                                   void* stream) {
+    const cudaStream_t s = (cudaStream_t)stream;
+    const int n = frames * H * W;
+    if (n == 0) return (int)cudaSuccess;
+    const int tiles_y = (H + kTileH - 1) / kTileH;
+    const int tiles_x = (W + kTileW - 1) / kTileW;
+    const long long edges = (long long)frames *
+        ((long long)(tiles_y - 1) * W + (long long)H * (tiles_x - 1));
+    int* L = (int*)labels;
+    ccl_local<<<dim3(tiles_x, tiles_y, frames), dim3(kTileW, kTileH), 0,
+                s>>>((const float*)D, H, W, fstride, thr, L, nullptr);
+    if (edges > 0)
+        ccl_border<<<(unsigned)((edges + 255) / 256), 256, 0, s>>>(
+            (const float*)D, frames, H, W, fstride, thr, L);
+    ccl_globalize<<<(n + 255) / 256, 256, 0, s>>>(n, H, W, Hf, row0, frame0,
+                                                  L);
+    return (int)cudaGetLastError();
+}
+
+// D, out: `frames` H x W maps (contiguous); labels: the forests of the
+// stripes of `rows` rows each (the last may be shorter), laid side by side
+// as (frames H W,) int32 global indices; size: (frames H W,) int32
+// scratch.  Unites across the stripe edges, then counts and applies.
+extern "C" int svtt_speckle_merge(const void* D, int frames, int H, int W,
+                                  int rows, float thr, int speckle,
+                                  void* labels, void* size, void* out,
+                                  void* stream) {
+    const cudaStream_t s = (cudaStream_t)stream;
+    const int n = frames * H * W;
+    if (n == 0) return (int)cudaSuccess;
+    int* L = (int*)labels;
+    const int edges = rows > 0 ? (H - 1) / rows : 0;
+    const long long pairs = (long long)frames * edges * W;
+    if (pairs > 0)
+        ccl_merge<<<(unsigned)((pairs + 255) / 256), 256, 0, s>>>(
+            (const float*)D, frames, H, W, rows, edges, thr, L);
+    cudaError_t e = cudaMemsetAsync(size, 0, sizeof(int) * (size_t)n, s);
+    if (e != cudaSuccess) return (int)e;
     const int flat = (n + 255) / 256;
     ccl_count<<<flat, 256, 0, s>>>(n, L, (int*)size);
     ccl_apply<<<flat, 256, 0, s>>>((const float*)D, L, (const int*)size, n,

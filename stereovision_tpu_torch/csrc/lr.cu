@@ -18,9 +18,9 @@
 // that size one launch is within a few microseconds of the launch floor:
 // on an H100 it takes 4.2 us of device time where an empty kernel takes
 // 1.8 (launches queued back to back behind a spin kernel, floor.cu).
-// Design: one block per row (frames folded into rows: blockIdx.x = b H +
-// v).  The block loads both rows, D1's and D2's, into shared memory (8 W
-// bytes, 9.9 KB at W = 1242) with coalesced 4-byte loads, computes both
+// Design: one block per row (blockIdx.x = v, blockIdx.y = frame b).  The
+// block loads both rows, D1's and D2's, into shared memory (8 W bytes,
+// 9.9 KB at W = 1242) with coalesced 4-byte loads, computes both
 // directions from shared memory and writes both output rows coalesced.  A
 // 4968-byte row is 8- but not 16-byte aligned on odd rows, so the loads
 // are scalar: a warp's 32 neighbouring floats are already whole sectors.
@@ -33,6 +33,11 @@
 // The ceiling: rows wider than 48 KB / 8 = 6144 columns need the device's
 // opt-in shared memory, given once per device (29056 columns on an H100);
 // svtt_lr_max_width reports it and lr_cu.launch raises past it.
+//
+// Row stripes (the sharded mode of lr_pl.py:122-165: row stripes over the
+// mesh's 'tile' axis, no halo; the check never leaves a row): the inputs
+// may be a stripe of each frame's rows, a view whose frames lie fstride
+// floats apart; the outputs are contiguous.
 
 #include "svtt_cuda.cuh"
 
@@ -53,20 +58,22 @@ __device__ __forceinline__ float check(const float* Da, const float* Db,
     return -10.f;
 }
 
-// D1, D2, O1, O2: rows of W floats, row blockIdx.x.  Dynamic shared
-// memory: 2 W floats.
+// D1, D2: frames of H rows of W floats, fstride floats apart; O1, O2:
+// contiguous rows; row v = blockIdx.x of frame b = blockIdx.y.  Dynamic
+// shared memory: 2 W floats.
 __global__ void __launch_bounds__(kThreads)
     lr_check_kernel(const float* __restrict__ D1,
-                    const float* __restrict__ D2, int W, float scale,
-                    float thr, float* __restrict__ O1,
-                    float* __restrict__ O2) {
+                    const float* __restrict__ D2, int H, int W,
+                    long long fstride, float scale, float thr,
+                    float* __restrict__ O1, float* __restrict__ O2) {
     extern __shared__ float rows[];
     float* r1 = rows;
     float* r2 = rows + W;
-    const size_t row = (size_t)blockIdx.x * W;
+    const size_t row = ((size_t)blockIdx.y * H + blockIdx.x) * W;
+    const size_t in = blockIdx.y * fstride + (size_t)blockIdx.x * W;
     for (int u = threadIdx.x; u < W; u += kThreads) {
-        r1[u] = D1[row + u];
-        r2[u] = D2[row + u];
+        r1[u] = D1[in + u];
+        r2[u] = D2[in + u];
     }
     __syncthreads();
     for (int u = threadIdx.x; u < W; u += kThreads) {
@@ -97,19 +104,21 @@ extern "C" int svtt_lr_max_width(int* W) {
     return (int)cudaSuccess;
 }
 
-// `frames` H x W maps each; scale: column warp per unit of disparity (1, or
-// 0.5 on the half lattice).
+// `frames` H x W maps each, the inputs' frames fstride floats apart (H W
+// for whole frames), the outputs contiguous; scale: column warp per unit
+// of disparity (1, or 0.5 on the half lattice).
 extern "C" int svtt_lr_check(const void* D1, const void* D2, int frames,
-                             int H, int W, float scale, float thr, void* O1,
-                             void* O2, void* stream) {
+                             int H, int W, long long fstride, float scale,
+                             float thr, void* O1, void* O2, void* stream) {
     const size_t smem = 2 * sizeof(float) * (size_t)W;
     const int lim = smem_limit();
     if (lim < 0) return -lim;
     if (smem > (size_t)lim) return (int)cudaErrorInvalidValue;
-    const long long rows = (long long)frames * H;
-    if (rows == 0 || W == 0) return (int)cudaSuccess;
-    lr_check_kernel<<<(unsigned)rows, kThreads, smem, (cudaStream_t)stream>>>(
-        (const float*)D1, (const float*)D2, W, scale, thr, (float*)O1,
-        (float*)O2);
+    if (frames == 0 || H == 0 || W == 0) return (int)cudaSuccess;
+    if (frames > 65535) return (int)cudaErrorInvalidValue;
+    lr_check_kernel<<<dim3(H, frames), kThreads, smem,
+                      (cudaStream_t)stream>>>(
+        (const float*)D1, (const float*)D2, H, W, fstride, scale, thr,
+        (float*)O1, (float*)O2);
     return (int)cudaGetLastError();
 }

@@ -69,6 +69,15 @@
 // disp_max near 600) the kernel needs the device's opt-in maximum, which
 // it is given once per device; svtt_match_max_span reports the largest
 // d_top that fits, and matching_cu.launch raises past it.
+//
+// Row stripes (the sharded mode of matching_pl.py:242-293: output-row
+// stripes over the mesh's 'tile' axis, no halo): a launch may cover the
+// output rows [y0, y0 + Ho) of a frame of H true rows only, reading a slab
+// of the planes whose row 0 is frame row row0 (it holds rows clip(s y, 2,
+// H - 3) of its outputs), a slab of the mask whose row 0 is cell row g0,
+// and the maps' rows of the stripe.  Every input may be a view (frame,
+// plane and row strides given), so a stripe on the frame's own device
+// reads the frame in place.
 
 #include "svtt_cuda.cuh"
 
@@ -105,25 +114,30 @@ size_t smem_bytes(int step, int d_top, int nwords, int gs) {
 }
 
 // Per frame b = blockIdx.z: desc_a (the pass's own image), desc_b (the
-// other): (16, H, W) uint8; mask: (D, gh, gw) uint8 (bool); d_lo, d_hi,
-// d_plane, pvalid, key: (Ho, Wo) int32.  prior: (D,) int32, one table for
-// every frame.  Block: kSegment x kRows threads, thread (t, ty) on output
-// row R blockIdx.y + ty, output column S blockIdx.x + t.  Dynamic shared
-// memory: smem_bytes(kStep, d_top, ceil(D / 32), gs).
+// other): 16 uint8 planes of W columns whose row 0 is frame row row0
+// (frames dfs bytes apart, planes dps apart); mask: D uint8 (bool) planes
+// of gw columns whose row 0 is cell row g0 (frames mfs bytes apart, planes
+// mps apart); d_lo, d_hi, d_plane, pvalid: Ho rows of Wo int32 (frames
+// pfs words apart); key: (Ho, Wo) int32, contiguous.  prior: (D,) int32,
+// one table for every frame.  Block: kSegment x kRows threads, thread (t,
+// ty) on output row y0 + R blockIdx.y + ty of a frame of H true rows,
+// output column S blockIdx.x + t.  Dynamic shared memory: smem_bytes(kStep,
+// d_top, ceil(D / 32), gs).
 template <int kStep>
 __global__ void __launch_bounds__(kSegment* kRows) match_keys_kernel(
     const uint8_t* __restrict__ desc_a, const uint8_t* __restrict__ desc_b,
     const uint8_t* __restrict__ mask, const int* __restrict__ d_lo,
     const int* __restrict__ d_hi, const int* __restrict__ d_plane,
-    const int* __restrict__ pvalid, const int* __restrict__ prior, int H,
-    int W, int Ho, int Wo, int D, int gs, int gh, int gw, int d_top, int off,
-    int right, int* __restrict__ key) {
+    const int* __restrict__ pvalid, const int* __restrict__ prior,
+    long long dfs, long long dps, int row0, long long mfs, long long mps,
+    int g0, long long pfs, int H, int W, int y0, int Ho, int Wo, int D,
+    int gs, int gw, int d_top, int off, int right, int* __restrict__ key) {
     constexpr int S = kSegment;
     extern __shared__ uint4 smem[];
     const int nwords = (D + 31) >> 5;
     const int t = threadIdx.x;
-    const int y0 = blockIdx.y * kRows;  // the block's first row
-    const int y = y0 + threadIdx.y;
+    const int yb = blockIdx.y * kRows;  // the block's first row (stripe)
+    const int y = yb + threadIdx.y;
     uint4* Bw = smem + threadIdx.y * window_cols(kStep, d_top);
     unsigned* words =
         (unsigned*)(smem + kRows * window_cols(kStep, d_top));
@@ -131,20 +145,19 @@ __global__ void __launch_bounds__(kSegment* kRows) match_keys_kernel(
     const int x0 = blockIdx.x * S;
     const int xe = min(x0 + S, Wo);
     const int uf = kStep * x0, ul = kStep * (xe - 1);  // full-res columns
-    const int v = kStep * y;
-    const int r = min(max(v, 2), H - 3);  // the row both images match on
-    const size_t plane = (size_t)H * W;
+    const int v = kStep * (y0 + y);     // the frame row of the output row
+    const int r = min(max(v, 2), H - 3) - row0;  // both images match on
 
     // the B window; every accepted warp lies in it
     const int wlo = max(right ? uf : uf - d_top, 2);
     const int whi = min(right ? ul + d_top : ul, W - 3);
     const int nb = whi - wlo + 1;
     const int half = (nb + 1) >> 1;  // kStep 2: even offsets, then odd
-    const uint8_t* rowb = desc_b + b * 16 * plane + (size_t)r * W + wlo;
+    const uint8_t* rowb = desc_b + b * dfs + (size_t)r * W + wlo;
     if (y < Ho)
         for (int i = t; i < nb; i += S)
             Bw[kStep == 1 ? i : (i & 1) * half + (i >> 1)] =
-                column16(rowb + i, plane);
+                column16(rowb + i, dps);
 
     // the candidate words of the cells under the segment, in the cell rows
     // of the block's rows: bit j of word w of cell (cy0 + q, cx0 + c) is
@@ -152,10 +165,10 @@ __global__ void __launch_bounds__(kSegment* kRows) match_keys_kernel(
     // neighbouring cells
     const int cx0 = uf / gs;
     const int ncells = ul / gs - cx0 + 1;
-    const int cy0 = kStep * y0 / gs;
-    const int ncy = kStep * (min(y0 + kRows, Ho) - 1) / gs - cy0 + 1;
-    const size_t mplane = (size_t)gh * gw;
-    const uint8_t* m = mask + b * D * mplane + (size_t)cy0 * gw + cx0;
+    const int cy0 = kStep * (y0 + yb) / gs;
+    const int ncy = kStep * (y0 + min(yb + kRows, Ho) - 1) / gs - cy0 + 1;
+    const size_t mplane = mps;
+    const uint8_t* m = mask + b * mfs + (size_t)(cy0 - g0) * gw + cx0;
     for (int k = threadIdx.y * S + t; k < ncy * ncells * nwords;
          k += S * kRows) {
         const int c = k % ncells, q = k / ncells % ncy;
@@ -172,11 +185,11 @@ __global__ void __launch_bounds__(kSegment* kRows) match_keys_kernel(
     // the thread's own pixel: A and the maps, loaded while the block stages
     const int x = x0 + t;
     const int u = kStep * x;
-    const size_t i = (b * Ho + y) * Wo + x;
+    const size_t i = b * pfs + (size_t)y * Wo + x;
     uint4 a = make_uint4(0u, 0u, 0u, 0u);
     int lo = 0, hi = -1, dp = 0, pv = 0;
     if (x < Wo && y < Ho) {
-        a = column16(desc_a + b * 16 * plane + (size_t)r * W + u, plane);
+        a = column16(desc_a + b * dfs + (size_t)r * W + u, dps);
         lo = d_lo[i];
         hi = d_hi[i];
         dp = d_plane[i];
@@ -216,7 +229,7 @@ __global__ void __launch_bounds__(kSegment* kRows) match_keys_kernel(
         const int pr = pv ? __ldg(prior + min(abs(d - dp), D - 1)) : 0;
         best = min(best, ((sad(uw) + pr + off) * 2 + 1) * 512 + d);
     }
-    key[i] = best;
+    key[(b * Ho + y) * Wo + x] = best;
 }
 
 // The device's opt-in maximum of dynamic shared memory a block, set on both
@@ -255,15 +268,23 @@ extern "C" int svtt_match_max_span(int step, int gs, int nwords,
     return (int)cudaSuccess;
 }
 
-// `frames` frames, each an Ho x Wo output lattice of step `step` (1 or 2)
-// over (16, H, W) descriptor planes and a (D, gh, gw) cell grid of gs x gs
-// pixels.
+// `frames` frames, each the output rows [y0, y0 + Ho) of an Wo wide
+// lattice of step `step` (1 or 2) over the descriptor planes of a frame of
+// H true rows and W columns and a cell grid of gs x gs pixels, gw cells
+// wide, D planes: the planes' slab starts at frame row row0 (frames dfs
+// bytes apart, planes dps apart), the mask's at cell row g0 (frames mfs
+// bytes apart, planes mps apart), the maps' frames lie pfs words apart and
+// the keys are contiguous.  A whole (16, H, W) frame with a (D, gh, gw)
+// mask: dfs 16 H W, dps H W, mfs D gh gw, mps gh gw, pfs Ho Wo, row0, g0
+// and y0 0.
 extern "C" int svtt_match_keys(const void* desc_a, const void* desc_b,
                                const void* mask, const void* d_lo,
                                const void* d_hi, const void* d_plane,
                                const void* pvalid, const void* prior,
-                               int frames, int H, int W, int Ho, int Wo,
-                               int step, int D, int gs, int gh, int gw,
+                               int frames, long long dfs, long long dps,
+                               int row0, long long mfs, long long mps, int g0,
+                               long long pfs, int H, int W, int y0, int Ho,
+                               int Wo, int step, int D, int gs, int gw,
                                int off, int right, void* key, void* stream) {
     if (step != 1 && step != 2) return (int)cudaErrorInvalidValue;
     const int span = D - 1 < W - 3 ? D - 1 : W - 3;
@@ -280,7 +301,7 @@ extern "C" int svtt_match_keys(const void* desc_a, const void* desc_b,
     kernel<<<grid, dim3(kSegment, kRows), smem, s>>>(
         (const uint8_t*)desc_a, (const uint8_t*)desc_b, (const uint8_t*)mask,
         (const int*)d_lo, (const int*)d_hi, (const int*)d_plane,
-        (const int*)pvalid, (const int*)prior, H, W, Ho, Wo, D, gs, gh, gw,
-        d_top, off, right, (int*)key);
+        (const int*)pvalid, (const int*)prior, dfs, dps, row0, mfs, mps, g0,
+        pfs, H, W, y0, Ho, Wo, D, gs, gw, d_top, off, right, (int*)key);
     return (int)cudaGetLastError();
 }

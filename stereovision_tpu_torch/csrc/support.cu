@@ -53,6 +53,14 @@
 // svtt_support_max_span reports the ceiling, and support_cu.launch raises
 // past it.  Segments of 128 and 512 columns were slower than 256 in every
 // mode on an H100.
+//
+// Row stripes (the sharded mode of support_pl.py:146-190: candidate-row
+// stripes over the mesh's 'tile' axis, no halo): a launch may cover the
+// candidate rows [first, first + count) only, reading a slab of the planes
+// whose row 0 is frame row row0, with the clamp clip(v -/+ 2, 0, H - 1)
+// taken at the frame's true height H.  The planes may be a view (frame
+// and plane strides given), so a stripe on the frame's own device reads
+// the frame in place.
 
 #include "svtt_cuda.cuh"
 
@@ -99,13 +107,16 @@ __device__ __forceinline__ void gather(const uint8_t* desc, size_t plane,
     *hi = b;
 }
 
-// Per frame b = blockIdx.z: desc1, desc2 (16, H, W) uint8; out (8, Hc, W)
-// int32.  Block: S = kSegment threads on candidate row blockIdx.y, output
+// Per frame b = blockIdx.z: desc1, desc2 16 uint8 planes of a slab whose
+// row 0 is frame row row0 (frames fstride bytes apart, planes `plane`
+// bytes apart, rows W); out (8, count, W) int32.  Block: S = kSegment
+// threads on candidate row first + blockIdx.y of a frame of H rows, output
 // columns [u0, u0 + S), u0 = S blockIdx.x.  d_top = min(d_hi, W - 5): no
 // output is valid at a larger d.  Dynamic shared memory: smem_bytes(d_top).
 __global__ void __launch_bounds__(kSegment)
     support_scan_kernel(const uint8_t* __restrict__ desc1,
-                        const uint8_t* __restrict__ desc2, int H, int W,
+                        const uint8_t* __restrict__ desc2, long long fstride,
+                        long long plane, int H, int row0, int first, int W,
                         int step, int d_lo, int d_top, int* __restrict__ out) {
     constexpr int S = kSegment;
     extern __shared__ uint4 smem[];
@@ -124,18 +135,17 @@ __global__ void __launch_bounds__(kSegment)
     const int r = blockIdx.y;
     const int Hc = gridDim.y;
     const size_t b = blockIdx.z;
-    const size_t plane = (size_t)H * W;
-    const int vc = r * step;
-    const int ra = min(max(vc - 2, 0), H - 1);
-    const int rb = min(max(vc + 2, 0), H - 1);
+    const int vc = (first + r) * step;
+    const int ra = min(max(vc - 2, 0), H - 1) - row0;
+    const int rb = min(max(vc + 2, 0), H - 1) - row0;
     const int ue = min(u0 + S, W);  // the segment's outputs: [u0, ue)
     const int Se = ue - u0;
 
     int f1e = kBig, f1d = -1, f2e = kBig, f2d = -1;
     int b1e = kBig, b1d = -1, b2e = kBig, b2d = -1;
     if (d_lo <= d_top) {
-        const uint8_t* d1 = desc1 + b * 16 * plane;
-        const uint8_t* d2 = desc2 + b * 16 * plane;
+        const uint8_t* d1 = desc1 + b * fstride;
+        const uint8_t* d2 = desc2 + b * fstride;
         for (int i = t; i < N; i += S) {
             gather(d1, plane, ra, rb, W, u0 - 2 + i, A_lo + i, A_hi + i);
             gather(d2, plane, ra, rb, W, u0 - 2 - d_top + i, B_lo + i,
@@ -235,20 +245,25 @@ extern "C" int svtt_support_max_span(int* d_top) {
     return (int)cudaSuccess;
 }
 
-// desc1, desc2: `frames` (16, H, W) uint8 descriptor stacks; out: `frames`
-// (8, ceil(H / step), W) int32.
+// desc1, desc2: `frames` stacks of 16 uint8 planes of W columns, frames
+// fstride bytes apart and planes `plane` bytes apart, whose row 0 is row
+// row0 of a frame of H rows; out: `frames` (8, count, W) int32, the scan
+// of candidate rows [first, first + count).  A whole (16, H, W) frame:
+// fstride 16 H W, plane H W, row0 and first 0, count ceil(H / step).
 extern "C" int svtt_support_scan(const void* desc1, const void* desc2,
-                                 int frames, int H, int W, int step, int d_lo,
+                                 int frames, long long fstride,
+                                 long long plane, int H, int row0, int first,
+                                 int count, int W, int step, int d_lo,
                                  int d_hi, void* out, void* stream) {
     const int d_top = d_hi < W - 5 ? d_hi : W - 5;
     const size_t smem = smem_bytes(d_top);
     const int lim = smem_limit();
     if (lim < 0) return -lim;
     if (smem > (size_t)lim) return (int)cudaErrorInvalidValue;
-    const dim3 grid((W + kSegment - 1) / kSegment, (H + step - 1) / step,
-                    frames);
+    if (frames == 0 || count == 0) return (int)cudaSuccess;
+    const dim3 grid((W + kSegment - 1) / kSegment, count, frames);
     support_scan_kernel<<<grid, kSegment, smem, (cudaStream_t)stream>>>(
-        (const uint8_t*)desc1, (const uint8_t*)desc2, H, W, step, d_lo,
-        d_top, (int*)out);
+        (const uint8_t*)desc1, (const uint8_t*)desc2, fstride, plane, H, row0,
+        first, W, step, d_lo, d_top, (int*)out);
     return (int)cudaGetLastError();
 }

@@ -22,6 +22,13 @@ and give each frame its single-frame result: stage_support_batched takes
 (B, 2, H, W) image pairs, stage_dense_batched the (B, nbytes) packed
 geometry (pack_geometry: one upload a batch).  The host middle runs frame
 by frame, in a spawn process pool for the streaming paths (host_pool).
+
+row_pad=(in_pad, out_pad) is the row-sharded pipeline's mode
+(parallel/shard.py; elas.py:118-132, :210-222, :300-381): stage A takes
+images padded to H + in_pad rows, stage B gives maps of Ho + out_pad rows
+whose padding rows are -10 and whose real rows equal the unpadded
+engine's (each op takes the true shape for its row clamps and regions).
+Under a kernel mesh (parallel/ctx.py) the kernels run per shard.
 """
 
 from __future__ import annotations
@@ -50,12 +57,14 @@ class ElasEngine:
     """ELAS pipeline for one image size on one device."""
 
     def __init__(self, params: ElasParams, width: int, height: int,
-                 host_filters: bool = True, device: Optional[str] = None):
+                 host_filters: bool = True, device: Optional[str] = None,
+                 row_pad: Tuple[int, int] = (0, 0)):
         # host_filters=True: the support filters run on the host with the
         # reference's sequential in-place semantics (hostlib.raster);
         # False: their snapshot versions run on the device after K2
         # (ops.support.support_matches(apply_filters=True))
         self.host_filters = host_filters
+        self.row_pad_in, self.row_pad_out = (int(x) for x in row_pad)
         self.p = params
         self.device = resolve_device(device)
         self.width = int(width)
@@ -126,22 +135,33 @@ class ElasEngine:
         d_can) on the engine's device; d_can is the (Hc, Wc) int16
         support grid, raw under host_filters (the host applies the
         sequential filters), else filtered on the device."""
-        desc1 = compute_descriptor(upload(I1, self.device))
-        desc2 = compute_descriptor(upload(I2, self.device))
+        th = self.true_height
+        desc1 = compute_descriptor(upload(I1, self.device), th)
+        desc2 = compute_descriptor(upload(I2, self.device), th)
         d_can = support_cu.support_matches(
-            desc1, desc2, self.p, apply_filters=not self.host_filters)
+            desc1, desc2, self.p, apply_filters=not self.host_filters,
+            true_height=th)
         return desc1, desc2, d_can
 
-    def stage_support_batched(self, pairs):
+    def stage_support_batched(self, pairs, device=None):
         """(B, 2, H, W) uint8 gray image pairs (NumPy or a tensor) ->
         (desc1, desc2, d_can) with a leading batch dimension: one launch
-        of K2 for the batch."""
-        desc = compute_descriptor(upload(pairs, self.device))
+        of K2 for the batch (one a shard under a kernel mesh), on `device`
+        (default: the engine's)."""
+        th = self.true_height
+        desc = compute_descriptor(upload(pairs, device or self.device), th)
         desc1 = desc[:, 0].contiguous()
         desc2 = desc[:, 1].contiguous()
         d_can = support_cu.support_matches(
-            desc1, desc2, self.p, apply_filters=not self.host_filters)
+            desc1, desc2, self.p, apply_filters=not self.host_filters,
+            true_height=th)
         return desc1, desc2, d_can
+
+    @property
+    def true_height(self) -> int:
+        """The ops' true_height: the frame's rows under row padding, else
+        0 (the images' own)."""
+        return self.height if self.row_pad_in else 0
 
     # ---- host middle ------------------------------------------------------
 
@@ -228,11 +248,20 @@ class ElasEngine:
         leading batch dimension on every input, (B, Ho, Wo) maps, each
         kernel launched once for the batch."""
         p = self.p
-        left, right = self.dense_inputs(pts, tris_l, tris_r, tri_l, tri_r)
-        D1 = matching_cu.compute_disparity(desc1, desc2, *left, p,
-                                           right_image=False)
-        D2 = matching_cu.compute_disparity(desc2, desc1, *right, p,
-                                           right_image=True)
+        (tid_l, *left), (tid_r, *right) = self.dense_inputs(
+            pts, tris_l, tris_r, tri_l, tri_r)
+        out_pad, th = self.row_pad_out, self.true_height
+        if out_pad:
+            # the padded lattice: -1 (no triangle) rows, which matching
+            # makes -10 and every later stage keeps
+            tid_l, tid_r = (torch.nn.functional.pad(t, (0, 0, 0, out_pad),
+                                                    value=-1)
+                            for t in (tid_l, tid_r))
+        pad = dict(true_height=th, pad_out_rows=out_pad)
+        D1 = matching_cu.compute_disparity(desc1, desc2, tid_l, *left, p,
+                                           right_image=False, **pad)
+        D2 = matching_cu.compute_disparity(desc2, desc1, tid_r, *right, p,
+                                           right_image=True, **pad)
         D1, D2 = lr_cu.lr_consistency_check(D1, D2, p)
         D1 = ccl_cu.remove_small_segments(D1, p)
         if not p.postprocess_only_left:
@@ -240,14 +269,20 @@ class ElasEngine:
         D1 = post.gap_interpolation(D1, p)
         if not p.postprocess_only_left:
             D2 = post.gap_interpolation(D2, p)
+        tsh = (self.Ho, self.Wo) if out_pad else None
         if p.filter_adaptive_mean:
-            D1 = post.adaptive_mean(D1, p)
+            D1 = post.adaptive_mean(D1, p, tsh)
             if not p.postprocess_only_left:
-                D2 = post.adaptive_mean(D2, p)
+                D2 = post.adaptive_mean(D2, p, tsh)
         if p.filter_median:
-            D1 = post.median_filter(D1, p)
+            D1 = post.median_filter(D1, p, tsh)
             if not p.postprocess_only_left:
-                D2 = post.median_filter(D2, p)
+                D2 = post.median_filter(D2, p, tsh)
+        if out_pad:
+            # gap interpolation's border extrapolation may reach the
+            # padding rows: make them -10 again
+            D1[..., self.Ho:, :] = -10.0
+            D2[..., self.Ho:, :] = -10.0
         return D1, D2
 
     def stage_dense_batched(self, desc1, desc2, buf):

@@ -13,6 +13,11 @@ The streaming paths launch from several threads: the first build and the
 wrappers' launch counters are guarded by locks (the counters are
 read-modify-writes), and each launch goes to the calling thread's current
 stream.
+
+Under a mesh (parallel/ctx.py) the wrappers launch once per row stripe,
+on views of the frame where the stripe's device is the frame's: K1, K2
+and K4 take frame and plane strides (layout), and each stripe launch
+counts as one.
 """
 
 from __future__ import annotations
@@ -37,16 +42,20 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
     # name: argtypes (every function returns the launch's cudaError_t)
-    "svtt_support_scan": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "svtt_support_scan": [_P, _P, _I, _L, _L, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _P, _P],
     "svtt_support_max_span": [_P],
-    "svtt_match_keys": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                        _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "svtt_match_keys": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _L,
+                        _L, _I, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _P, _P],
     "svtt_match_max_span": [_I, _I, _I, _P],
-    "svtt_lr_check": [_P, _P, _I, _I, _I, _F, _F, _P, _P, _P],
+    "svtt_lr_check": [_P, _P, _I, _I, _I, _L, _F, _F, _P, _P, _P],
     "svtt_lr_max_width": [_P],
     "svtt_empty": [_P],
     "svtt_spin": [_L, _P],
     "svtt_speckle": [_P, _I, _I, _I, _F, _I, _P, _P, _P, _P],
+    "svtt_speckle_stripe": [_P, _I, _I, _I, _L, _F, _I, _I, _I, _P, _P],
+    "svtt_speckle_merge": [_P, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P],
 }
 _build_lock = threading.Lock()
 _count_lock = threading.Lock()
@@ -94,11 +103,11 @@ def kernels() -> ctypes.CDLL:
     return _lib
 
 
-def count(namespace: dict) -> None:
-    """Add one to a wrapper module's `launches` (pass its globals()),
-    under a lock."""
+def count(namespace: dict, key: str = "launches") -> None:
+    """Add one to a wrapper module's `launches` (pass its globals()), or
+    to its counter `key`, under a lock."""
     with _count_lock:
-        namespace["launches"] += 1
+        namespace[key] += 1
 
 
 def frames(t: torch.Tensor, single_ndim: int) -> int:
@@ -120,11 +129,14 @@ def stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-def expect(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
-           align: int = 16) -> None:
-    """Raise unless t is a contiguous CUDA tensor of this dtype and shape,
-    its data `align`-byte aligned (16 where a kernel loads 16-byte vectors
-    from it)."""
+def layout(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
+           planes: bool = False) -> tuple:
+    """Raise unless t is a CUDA tensor of this dtype and shape whose rows
+    are contiguous (a view of whole rows, such as a row stripe of a frame
+    or of a batch; a vector: contiguous); returns (frame stride, plane
+    stride) in elements: the leading dimension's stride (for one frame:
+    the frame's size) and, with `planes`, the stride of the dimension
+    before the rows (else 0)."""
     if t.device.type != "cuda":
         raise ValueError("%s must be a CUDA tensor, got %s" % (name, t.device))
     if t.dtype != dtype:
@@ -132,9 +144,20 @@ def expect(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
     if tuple(t.shape) != tuple(shape):
         raise ValueError("%s must have shape %s, got %s"
                          % (name, tuple(shape), tuple(t.shape)))
-    if not t.is_contiguous() or t.data_ptr() % align:
-        raise ValueError("%s must be contiguous and %d-byte aligned"
-                         % (name, align))
+    if t.dim() < 2:
+        if t.numel() > 1 and t.stride(-1) != 1:
+            raise ValueError("%s must be contiguous" % name)
+        return t.numel(), 0
+    rows, cols = t.shape[-2:]
+    if t.stride(-1) != 1 or (rows > 1 and t.stride(-2) != cols):
+        raise ValueError("%s must be a view of whole contiguous rows" % name)
+    inner = 3 if planes else 2
+    plane = t.stride(-3) if planes else 0
+    if planes and t.shape[-3] > 1 and plane < rows * cols:
+        raise ValueError("%s: planes overlap" % name)
+    frame = (t.stride(0) if t.dim() > inner
+             else (t.shape[-3] * plane if planes else rows * cols))
+    return frame, plane
 
 
 def check(err: int, name: str) -> None:

@@ -35,14 +35,21 @@ DESCRIPTOR_TAPS = (
 )
 
 
-def compute_descriptor(img: torch.Tensor) -> torch.Tensor:
-    """img: (..., H, W) uint8 -> descriptor (..., 16, H, W) uint8."""
+def compute_descriptor(img: torch.Tensor,
+                       true_height: int = 0) -> torch.Tensor:
+    """img: (..., H, W) uint8 -> descriptor (..., 16, H, W) uint8.
+
+    true_height: when the image carries padding rows at the bottom (the
+    row-sharded pipeline, parallel/shard.py), the valid region is taken at
+    the true height, rows >= true_height - 3 are zero, and the real rows
+    equal the unpadded descriptor's (descriptor.py:57-78)."""
     grads = sobel3x3(img)
     h, w = img.shape[-2:]
+    th = true_height or h
     desc = torch.stack([_pad_roll(grads[src], dy, dx)
                         for src, dy, dx in DESCRIPTOR_TAPS], dim=-3)
     valid = torch.zeros((h, w), dtype=torch.bool, device=img.device)
-    valid[3:h - 3, 3:w - 3] = True
+    valid[3:th - 3, 3:w - 3] = True
     return torch.where(valid, desc, torch.zeros((), dtype=torch.uint8,
                                                 device=img.device))
 

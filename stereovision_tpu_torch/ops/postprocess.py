@@ -16,6 +16,13 @@ threshold int(2 sqrt(speckle_size)), the gap ipol_gap_width // 2 + 1 and
 the 4-tap adaptive mean.  Every stage takes one map or a batch (B, H, W)
 and gives each frame its single-frame result; the plain speckle filter
 loops over the frames of a batch.
+
+The row-sharded pipeline (parallel/shard.py) runs the speckle filter
+banded: remove_small_segments_banded labels each row stripe on its own
+and unites the components across stripe edges (ccl_pl.py:260-381), the
+plain version of K3's banded mode; adaptive_mean and median_filter take
+the true shape of a map that carries -10 padding rows (postprocess.py:311,
+:365).
 """
 
 from __future__ import annotations
@@ -92,13 +99,25 @@ def remove_small_segments(D: torch.Tensor, p: ElasParams) -> torch.Tensor:
     """Plain version of the speckle kernel (K3): 4-connected components of
     valid pixels with |ΔD| <= speckle_sim_threshold; components under
     speckle_threshold(p) pixels, and every invalid pixel, become -10.
-
-    Labels come from segmented min-scans (torch.cummin over re-keyed
-    values, the JAX XLA formulation) iterated to the fixpoint, where every
-    component carries its minimum linear index.  A batch is filtered one
-    frame at a time."""
+    A batch is filtered one frame at a time."""
     if D.dim() == 3:
         return torch.stack([remove_small_segments(x, p) for x in D])
+    return _drop_small(D, component_labels(D, p), p)
+
+
+def _drop_small(D: torch.Tensor, lab: torch.Tensor, p: ElasParams):
+    """-10 where the component of a pixel (its label in lab, a linear index
+    of the frame) has fewer than speckle_threshold(p) pixels."""
+    sizes = torch.bincount(lab.reshape(-1), minlength=D.numel())
+    seg_size = sizes[lab.to(torch.int64)]
+    return torch.where(seg_size < speckle_threshold(p), _INVALID, D)
+
+
+def component_labels(D: torch.Tensor, p: ElasParams) -> torch.Tensor:
+    """(H, W) -> (H, W) int32: each pixel's component label, the minimum
+    linear index of its component (connectivity), from segmented min-scans
+    (torch.cummin over re-keyed values, the JAX XLA formulation) iterated
+    to the fixpoint."""
     H, W = D.shape
     n = H * W
     if n * (max(H, W) + 1) >= 2 ** 31:
@@ -125,11 +144,78 @@ def remove_small_segments(D: torch.Tensor, p: ElasParams) -> torch.Tensor:
         for off, dim, rev in scans:
             m = scan_dir(m, off, dim, rev)
         if torch.equal(m, lab):
-            break
+            return lab
         lab = m
-    sizes = torch.bincount(lab.reshape(-1), minlength=n)
-    seg_size = sizes[lab.to(torch.int64)]
-    return torch.where(seg_size < speckle_threshold(p), _INVALID, D)
+
+
+def stripe_labels(D: torch.Tensor, p: ElasParams, height: int,
+                  row0: int) -> torch.Tensor:
+    """(..., Hs, W) rows [row0, row0 + Hs) of frames of `height` rows ->
+    (..., Hs, W) int64: each pixel's component within the stripe, labelled
+    by the frame's linear index of the component's first pixel (as
+    _banded_labels adds band * Hb * Wp)."""
+    if D.dim() == 3:
+        return torch.stack([stripe_labels(x, p, height, row0) for x in D])
+    W = D.shape[-1]
+    lab = component_labels(D, p).to(torch.int64)
+    return (lab // W + row0) * W + lab % W
+
+
+def merge_stripes(D: torch.Tensor, labels: torch.Tensor, p: ElasParams,
+                  rows: int) -> torch.Tensor:
+    """Unite stripe components across stripe edges (ccl_pl.py:342-381).
+    D: (H, W); labels: (H, W) int64 stripe_labels of its stripes of `rows`
+    rows (the last may be shorter), side by side.  A table T over the
+    labels (identity at first) is relaxed with scatter-mins over the pairs
+    of connected pixels across each edge, and path halving T[l] <- T[T[l]],
+    until it stops changing: values only decrease and stay inside one
+    component, so at the fixpoint T is constant over each component of the
+    whole frame.  Returns T[labels]: the whole-frame partition."""
+    H, W = D.shape
+    edges = torch.arange(rows, H, rows, device=D.device)
+    if edges.numel() == 0:
+        return labels
+    TL = labels[edges].reshape(-1)
+    BL = labels[edges - 1].reshape(-1)
+    up = connectivity(D, p, -1, 0)[edges].reshape(-1)
+    T = torch.arange(H * W, dtype=torch.int64, device=D.device)
+    big = torch.full_like(TL, H * W)
+    while True:
+        a, b = T[TL], T[BL]
+        m = torch.where(up, torch.minimum(a, b), big)
+        T = T.scatter_reduce(0, TL, m, "amin")
+        T = T.scatter_reduce(0, BL, m, "amin")
+        T = T.scatter_reduce(0, TL, T[T[TL]], "amin")
+        T = T.scatter_reduce(0, BL, T[T[BL]], "amin")
+        if torch.equal(T[TL], a) and torch.equal(T[BL], b):
+            return T[labels]
+
+
+def remove_small_segments_banded(D: torch.Tensor, p: ElasParams,
+                                 rows: int) -> torch.Tensor:
+    """The speckle filter run banded (the plain version of K3's banded
+    mode): stripes of `rows` rows labelled on their own (stripe_labels),
+    united across their edges (merge_stripes), then the size threshold.
+    Equals remove_small_segments.  A batch is filtered one frame at a
+    time."""
+    if D.dim() == 3:
+        return torch.stack([remove_small_segments_banded(x, p, rows)
+                            for x in D])
+    H = D.shape[0]
+    labels = torch.cat([stripe_labels(D[lo:lo + rows], p, H, lo)
+                        for lo in range(0, H, rows)])
+    return drop_merged(D, labels, p, rows)
+
+
+def drop_merged(D: torch.Tensor, labels: torch.Tensor, p: ElasParams,
+                rows: int) -> torch.Tensor:
+    """The filtered map from its stripes' labels (stripe_labels of stripes
+    of `rows` rows, side by side): merge_stripes, then the size threshold.
+    A batch is filtered one frame at a time."""
+    if D.dim() == 3:
+        return torch.stack([drop_merged(d, lab, p, rows)
+                            for d, lab in zip(D, labels)])
+    return _drop_small(D, merge_stripes(D, labels, p, rows), p)
 
 
 # ---------------------------------------------------------------------------
@@ -223,14 +309,17 @@ def _adaptive_pass(x: torch.Tensor, offsets, dim: int, centre_lo: int,
     return torch.where(written, d, x), written
 
 
-def adaptive_mean(D: torch.Tensor, p: ElasParams) -> torch.Tensor:
+def adaptive_mean(D: torch.Tensor, p: ElasParams,
+                  true_shape=None) -> torch.Tensor:
     """Separable approximated bilateral filter (reference
     elas.cpp:1297-1494): 8 taps at offsets -4..+3; the horizontal pass
     writes centres u in [4, W-4], rows v in [3, H-4]; the vertical pass
     consumes its result over centres v in [4, H-4], columns u in [3, W-4].
     On the half lattice: 4 taps at -2..+1, centres from 2 to n-2.
-    Unwritten positions keep D."""
-    H, W = D.shape[-2:]
+    Unwritten positions keep D.  true_shape=(Ho, Wo): the write regions of
+    a map with padding rows below (padding rows untouched, real rows
+    those of the unpadded map)."""
+    H, W = true_shape or D.shape[-2:]
     Dc = torch.where(D < 0, _INVALID, D)
     lo, hi = (2, 1) if p.subsampling else (4, 3)
     offsets = range(-lo, lo)
@@ -249,14 +338,15 @@ def _median_taps(x: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.sort(torch.stack(taps), dim=0).values[3]
 
 
-def median_filter(D: torch.Tensor, p: ElasParams) -> torch.Tensor:
+def median_filter(D: torch.Tensor, p: ElasParams,
+                  true_shape=None) -> torch.Tensor:
     """Two-pass 7-tap separable median (reference elas.cpp:1496-1559):
     horizontal medians of D into a zero temp (only where D >= 0, only for
     u, v in [3, n-4]), then vertical medians of the temp back into D under
-    the same conditions."""
-    H, W = D.shape[-2:]
-    ui = torch.arange(W, device=D.device)[None, :]
-    vi = torch.arange(H, device=D.device)[:, None]
+    the same conditions.  true_shape: as adaptive_mean's."""
+    H, W = true_shape or D.shape[-2:]
+    ui = torch.arange(D.shape[-1], device=D.device)[None, :]
+    vi = torch.arange(D.shape[-2], device=D.device)[:, None]
     region = (ui >= 3) & (ui < W - 3) & (vi >= 3) & (vi < H - 3)
     med_h = _median_taps(D, 1)
     tmp = torch.where(region, torch.where(D >= 0, med_h, D), 0.0)

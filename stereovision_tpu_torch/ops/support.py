@@ -23,6 +23,14 @@ the JAX package's bit for bit.
 Every function takes one frame or a batch (a leading batch dimension on
 each input) and gives each frame its single-frame result; the plain scan
 loops over the frames of a batch.
+
+Row padding and stripes (the row-sharded pipeline, parallel/shard.py):
+`height` is the frame's true height, to which every row clamps, so
+padding rows at the bottom of the descriptors are never read and the
+support grid equals the unpadded one (support.py:43-64).  The scan may
+cover the candidate rows [first, first + count) only, from a slab of the
+descriptors whose row 0 is frame row row0 (slab_rows gives the rows a
+stripe reads): the kernel's stripe mode, support_pl.py:146-190.
 """
 
 from __future__ import annotations
@@ -37,33 +45,59 @@ from .filters import _pad_roll
 _BIG = 2 ** 30
 
 
-def candidate_rows(desc: torch.Tensor, p: ElasParams) -> torch.Tensor:
-    """(..., 16, H, W) -> (..., Hc, 32, W): rows v-2 and v+2 (clipped) of
-    every candidate row v = vc * step, stacked into 32 byte planes."""
+def candidate_count(p: ElasParams, height: int) -> int:
+    """Candidate rows of a frame of `height` rows."""
+    return -(-height // p.step)
+
+
+def slab_rows(p: ElasParams, height: int, first: int, count: int):
+    """(lo, hi): the descriptor rows that the candidate rows [first,
+    first + count) of a frame of `height` rows read (rows v -/+ 2,
+    clipped); (lo, lo) for no rows."""
+    if count <= 0:
+        return (0, 0)
+    lo = min(max(first * p.step - 2, 0), height - 1)
+    hi = min(max((first + count - 1) * p.step + 2, 0), height - 1) + 1
+    return (lo, hi)
+
+
+def candidate_rows(desc: torch.Tensor, p: ElasParams, height: int = 0,
+                   row0: int = 0, first: int = 0,
+                   count: int = None) -> torch.Tensor:
+    """(..., 16, Hs, W) -> (..., count, 32, W): rows v-2 and v+2 (clipped
+    to [0, height)) of the candidate rows v = vc * step, vc in [first,
+    first + count), stacked into 32 byte planes; desc holds frame rows
+    [row0, row0 + Hs)."""
     lead = desc.shape[:-3]
-    H, W = desc.shape[-2:]
-    Hc = -(-H // p.step)
-    vc = np.arange(Hc) * p.step
+    W = desc.shape[-1]
+    H = height or desc.shape[-2]
+    if count is None:
+        count = candidate_count(p, H) - first
+    vc = (first + np.arange(count)) * p.step
     rows = np.stack([np.clip(vc - 2, 0, H - 1), np.clip(vc + 2, 0, H - 1)])
-    idx = torch.as_tensor(rows.T.reshape(-1), device=desc.device)
-    return desc[..., idx, :].reshape(*lead, 16, Hc, 2, W).movedim(-4, -2) \
-        .reshape(*lead, Hc, 32, W)
+    idx = torch.as_tensor(rows.T.reshape(-1) - row0, device=desc.device)
+    return desc[..., idx, :].reshape(*lead, 16, count, 2, W) \
+        .movedim(-4, -2).reshape(*lead, count, 32, W)
 
 
-def support_scan(desc1: torch.Tensor, desc2: torch.Tensor,
-                 p: ElasParams) -> torch.Tensor:
+def support_scan(desc1: torch.Tensor, desc2: torch.Tensor, p: ElasParams,
+                 height: int = 0, row0: int = 0, first: int = 0,
+                 count: int = None) -> torch.Tensor:
     """Plain version of the support kernel (K2).
 
     desc1, desc2: (16, H, W) uint8.  Returns (8, Hc, W) int32 planes
     f1e, f1d, f2e, f2d (forward) and b1e, b1d, b2e, b2d (backward); a
-    batch (B, 16, H, W) gives (B, 8, Hc, W), one frame at a time."""
+    batch (B, 16, H, W) gives (B, 8, Hc, W), one frame at a time.  With
+    height, row0, first and count (see candidate_rows): the scan of those
+    candidate rows, (..., 8, count, W)."""
+    rows = dict(height=height, row0=row0, first=first, count=count)
     if desc1.dim() == 4:
-        return torch.stack([support_scan(a, b, p)
+        return torch.stack([support_scan(a, b, p, **rows)
                             for a, b in zip(desc1, desc2)])
     W = desc1.shape[2]
     d_lo, d_hi = max(p.disp_min, 0), p.disp_max
-    A = candidate_rows(desc1, p).to(torch.int16)
-    B = candidate_rows(desc2, p).to(torch.int16)
+    A = candidate_rows(desc1, p, **rows).to(torch.int16)
+    B = candidate_rows(desc2, p, **rows).to(torch.int16)
     Hc = A.shape[0]
     dev = desc1.device
     # F is evaluated at x in [-2, W + d_hi + 2): index xi = x + 2.  A is
@@ -100,12 +134,15 @@ def support_scan(desc1: torch.Tensor, desc2: torch.Tensor,
 
 
 def finalize_support(scan: torch.Tensor, desc1: torch.Tensor,
-                     desc2: torch.Tensor, p: ElasParams) -> torch.Tensor:
+                     desc2: torch.Tensor, p: ElasParams,
+                     height: int = 0) -> torch.Tensor:
     """Scan minima (..., 8, Hc, W) -> validated support grid (..., Hc, Wc)
     int16, -1 where invalid: the validity masks, uniqueness ratios and L/R
     consistency of reference elas.cpp:266-440 (counterpart of
-    ops/support.py:142)."""
-    H, W = desc1.shape[-2:]
+    ops/support.py:142), at the true height `height` (default: the
+    descriptors')."""
+    W = desc1.shape[-1]
+    H = height or desc1.shape[-2]
     dev = desc1.device
     step = p.step
     dmax = p.disp_max
@@ -160,15 +197,18 @@ def finalize_support(scan: torch.Tensor, desc1: torch.Tensor,
 
 def support_matches(desc1: torch.Tensor, desc2: torch.Tensor,
                     p: ElasParams, apply_filters: bool = True,
-                    scan=support_scan) -> torch.Tensor:
+                    scan=support_scan, true_height: int = 0) -> torch.Tensor:
     """Dense support-point disparity grid (Hc, Wc) int16, -1 = invalid.
 
     apply_filters=True runs the snapshot (data-parallel) support filters;
     the engine passes False and applies the reference-exact sequential
     filters on the host (hostlib.raster.filter_support_sequential).
     `scan` is the scan to run: this module's plain version, or the kernel
-    wrapper ops.cuda.support_cu.support_scan."""
-    d_can = finalize_support(scan(desc1, desc2, p), desc1, desc2, p)
+    wrapper ops.cuda.support_cu.support_scan.  true_height: the frame's
+    rows when the descriptors carry bottom padding rows (the grid is the
+    unpadded one)."""
+    d_can = finalize_support(scan(desc1, desc2, p, height=true_height),
+                             desc1, desc2, p, height=true_height)
     if apply_filters:
         d_can = remove_inconsistent(d_can, p)
         d_can = remove_redundant(d_can, p, vertical=True)
