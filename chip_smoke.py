@@ -99,8 +99,23 @@ then:
      .launch --nproc 2 --local-devices 2 --width 1242 --height 375
      --steps 2; gloo, each process cuda:0 twice): both processes must
      report 0 shard errors;
+  10. the viewer and the profiler: cli.main with --view3d --record on 4
+     of phase 5's frames as PNGs ($DISPLAY unset) at full resolution
+     (the viewer with cv2 hidden, as on a machine without it: PGMs of the
+     gray mean), with -s 1, and with -o on phase 8's synthesized weights
+     (cubes; cv2 as the machine has it): 3 recorded windows a frame, each
+     cloud equal bit for bit to the port's renderer on the CPU given
+     phase 5's cloud of that frame and the cubes the viewer was given,
+     each disparity window to colorize_disparity of phase 5's dmap,
+     launch counts those of phase 7; the same frames with --view3d and no
+     --record, and with no viewer, for contrast; the renderer alone on phase 5's KITTI cloud (465,750 points) at 960x540,
+     point_px 1 and 2, with and without rings, on the card (the cloud a
+     tensor there; CUDA events, median of 10) and on the CPU, the images
+     equal bit for bit; profile_pipeline's four sections in both modes;
+     and device_trace around one process_frame, whose Chrome trace must
+     name the CUDA functions of all four kernels;
 and last:
-  10. one JSON line per kernel result, one `{"kernels": [...]}` line with
+  11. one JSON line per kernel result, one `{"kernels": [...]}` line with
      a row per kernel and mode, single-frame, batched and striped (each
      row names the design that replaced the kernel's first one), the card
      line, and `{"ok": true, "device": {...}}`.
@@ -1297,6 +1312,219 @@ def drive_launcher(card) -> None:
     assert len(res) == 2 and all(x["shard_errors"] == 0 for x in res), res
 
 
+VIEWER_FRAMES = 4            # phase 10: frames of each viewer CLI run
+RENDER_SIZE = (960, 540)     # the viewer's window
+# the CUDA functions each kernel's wrapper launches on one frame
+KERNEL_FUNCTIONS = {"matching": ["match_keys_kernel"],
+                    "support": ["support_scan_kernel"],
+                    "lr_check": ["lr_check_kernel"],
+                    "speckle_ccl": ["ccl_local", "ccl_border", "ccl_count",
+                                    "ccl_apply"]}
+
+
+def recorded(path, img) -> bool:
+    """Whether the window the viewer recorded at path is img: a PNG (cv2)
+    holds it whole, a PGM its gray mean."""
+    if path.endswith(".pgm"):
+        from stereovision_tpu_torch.io.pgm import load_pgm
+        return np.array_equal(load_pgm(path),
+                              img.mean(axis=2).astype(np.uint8))
+    import cv2
+    return np.array_equal(cv2.imread(path), img)
+
+
+@contextlib.contextmanager
+def without_cv2(hide: bool):
+    """`import cv2` fails inside the block when hide (the machine without
+    cv2 that the port must run on)."""
+    if not hide:
+        yield
+        return
+    saved = sys.modules.get("cv2")
+    sys.modules["cv2"] = None
+    try:
+        yield
+    finally:
+        if saved is None:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = saved
+
+
+def check_viewer_cli(scenes, outs_by_mode, tmp, card) -> dict:
+    """Phase 10's command lines on phase 5's frames: --view3d --record at
+    full resolution (the viewer with cv2 hidden: PGMs), with -s 1 and
+    with -o (cv2 as the machine has it), each recorded cloud equal to the CPU
+    renderer's of phase 5's cloud of that frame (with the cubes the
+    viewer was given), each disparity window to colorize_disparity of
+    phase 5's dmap, launch counts those of phase 7; then the same frames
+    with --view3d and no --record, and with no viewer, for contrast."""
+    from stereovision_tpu_torch import viz_live
+    from stereovision_tpu_torch.models import yolo
+    from stereovision_tpu_torch.params import app_params
+    from stereovision_tpu_torch.synthetic import darknet_weights
+    from stereovision_tpu_torch.viz import colorize_disparity
+    for var in ("DISPLAY", "WAYLAND_DISPLAY"):
+        os.environ.pop(var, None)
+    n = VIEWER_FRAMES
+    kitti = write_kitti(os.path.join(tmp, "kitti"),
+                        [(lf, rf) for lf, rf, _ in scenes[1:1 + n]])
+    cfg = os.path.join(yolo.DATA_DIR, "yolov4-tiny.cfg")
+    weights = os.path.join(tmp, "synth.weights")
+    darknet_weights(weights, yolo.parse_darknet_cfg(cfg), seed=0)
+    cpu = viz_live.PointCloudRenderer(*RENDER_SIZE, device="cpu")
+    REC = object()               # the run's record directory in argv
+    shown, hide_cv2 = [], [False]
+    real_show = viz_live.LiveViewer.show
+
+    def show(self, out, left, detections=(), fps=None, cubes=None):
+        # the viewer without cv2 where the run asks (the engine keeps it:
+        # its rectification takes cv2's where present, and the clouds are
+        # phase 5's)
+        shown.append(list(cubes or []))
+        with without_cv2(hide_cv2[0]):
+            return real_show(self, out, left, detections, fps=fps,
+                             cubes=cubes)
+    viz_live.LiveViewer.show = show
+    runs = {}
+    try:
+        for name, extra, mode, hide in (
+                ("view3d_record_no_cv2", ["--view3d", "--record", REC],
+                 "full", True),
+                ("view3d_record_subsampled", ["--view3d", "--record", REC,
+                                              "-s", "1"], "subsampled",
+                 False),
+                ("view3d_record_detection", [
+                    "--view3d", "--record", REC, "-o", "-ycfg", cfg, "-yw",
+                    weights], "full", False),
+                ("view3d", ["--view3d"], "full", False),
+                ("no_viewer", [], "full", False)):
+            rec = os.path.join(tmp, "rec_" + name)
+            argv = ["-k", kitti, "-w", str(W), "-ht", str(H), "--frames",
+                    str(n)] + [rec if a is REC else a for a in extra]
+            shown.clear()
+            hide_cv2[0] = hide
+            rc, lines, wall, launches = run_cli(argv)
+            assert rc == 0, (name, rc)
+            assert "DISPLAY" not in os.environ
+            p = app_params(subsampling=mode == "subsampled")
+            avg = check_frame_lines(
+                [l for l in lines if not l.startswith("  ")], n,
+                p.out_shape(W, H))
+            assert launches == per_frame_counts(p, n), (name, launches)
+            runs[name] = {"argv": " ".join(a for a in argv[6:]
+                                           if not a.startswith(tmp)),
+                          "frames": n, "AVG_FPS": avg, "wall_s": wall,
+                          "frames_per_wall_s": n / wall,
+                          "launches": launches}
+            assert len(shown) == (n if extra else 0), (name, len(shown))
+            if "--record" not in extra:
+                continue
+            files = sorted(os.listdir(rec))
+            ext = "pgm" if hide else files[0].rsplit(".", 1)[-1]
+            assert files == sorted(
+                "%s_%06d.%s" % (w, i, ext) for i in range(n)
+                for w in ("cloud", "detections", "disparity")), files
+            cubes = 0
+            with without_cv2(hide):
+                for i, ref in enumerate(outs_by_mode[mode][:n]):
+                    cloud = cpu.render(ref["points"], viz_live.Camera(),
+                                       cubes=shown[i])
+                    assert recorded(os.path.join(
+                        rec, "cloud_%06d.%s" % (i, ext)), cloud), (name, i)
+                    assert recorded(os.path.join(
+                        rec, "disparity_%06d.%s" % (i, ext)),
+                        colorize_disparity(ref["dmap"])), (name, i)
+                    cubes += len(shown[i])
+            assert (cubes > 0) == ("-o" in extra), (name, cubes)
+            runs[name].update(files=len(files), format=ext, cubes=cubes)
+    finally:
+        viz_live.LiveViewer.show = real_show
+    return runs
+
+
+def time_renderer(outs, card) -> dict:
+    """Phase 10's renderer alone: phase 5's KITTI cloud at 960x540 on the
+    card (the cloud a tensor there, as fetch "dmap" leaves it; CUDA
+    events, median of REPS calls, the image's fetch included) and on the
+    CPU (the same cloud fetched; host clock, median of 3), point_px 1 and
+    2, with and without rings; the two images equal bit for bit."""
+    from stereovision_tpu_torch import viz_live
+    pts = outs[0]["points"]
+    dev = torch.from_numpy(pts).cuda().reshape(H, W, 3)
+    cam = viz_live.Camera()
+    rows = []
+    for px in (1, 2):
+        gpu = viz_live.PointCloudRenderer(*RENDER_SIZE, point_px=px)
+        cpu = viz_live.PointCloudRenderer(*RENDER_SIZE, point_px=px,
+                                          device="cpu")
+        for rings in (True, False):
+            got = gpu.render(dev, cam, draw_rings=rings)
+            want = cpu.render(pts, cam, draw_rings=rings)
+            assert np.array_equal(got, want), ("render", px, rings)
+            cpu_s = []
+            for _ in range(3):
+                t = time.perf_counter()
+                cpu.render(pts, cam, draw_rings=rings)
+                cpu_s.append(time.perf_counter() - t)
+            rows.append({"point_px": px, "rings": rings,
+                         "card_ms": event_ms(
+                             lambda: gpu.render(dev, cam, draw_rings=rings)),
+                         "cpu_ms": 1e3 * float(np.median(cpu_s)),
+                         "drawn_pixels": int((got != 12).any(axis=2).sum()),
+                         "equal_to_cpu": "bit for bit"})
+    return {"points": len(pts), "size": list(RENDER_SIZE), "runs": rows,
+            "card": card}
+
+
+def check_profiler(scenes, calib, tmp, card) -> dict:
+    """Phase 10's profiler: profile_pipeline in both modes (best of 3),
+    and device_trace around one process_frame, whose Chrome trace must
+    name every kernel's CUDA functions."""
+    from stereovision_tpu_torch.engine import StereoEngine
+    from stereovision_tpu_torch.params import app_params
+    from stereovision_tpu_torch.profiling import (device_trace,
+                                                  profile_pipeline)
+    lf, rf, _ = scenes[1]
+    out = {}
+    for mode, p in (("full", app_params()),
+                    ("subsampled", app_params(subsampling=True))):
+        with StereoEngine(calib, W, H, params=p) as eng:
+            out[mode] = {k: 1e3 * v for k, v in
+                         profile_pipeline(eng, lf, rf, n=3).items()}
+            if mode == "full":
+                with device_trace(os.path.join(tmp, "trace")) as path:
+                    eng.process_frame(lf, rf)
+    with open(path) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat", "").lower() == "kernel"}
+    found = {k: [fn for fn in fns if any(fn in nm for nm in names)]
+             for k, fns in KERNEL_FUNCTIONS.items()}
+    assert found == KERNEL_FUNCTIONS, (found, sorted(names)[:40])
+    return {"profile_pipeline_best_ms": out, "trace_kernels": found,
+            "trace_bytes": os.path.getsize(path), "card": card}
+
+
+def drive_viewer(scenes, outs_by_mode, calib, card) -> None:
+    """Phase 10: the viewer and the profiler on the card."""
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            import cv2
+            cv2_version = cv2.__version__
+        except ImportError:
+            cv2_version = None
+        print(json.dumps({"viewer_cli": dict(runs=check_viewer_cli(
+            scenes, outs_by_mode, tmp, card), cv2=cv2_version, card=card)}),
+              flush=True)
+        print(json.dumps({"renderer": time_renderer(outs_by_mode["full"],
+                                                    card)}), flush=True)
+        print(json.dumps({"profiler": check_profiler(scenes, calib, tmp,
+                                                     card)}), flush=True)
+    print(json.dumps({"phase_10_s": time.perf_counter() - t, "card": card}),
+          flush=True)
+
+
 def kernel_rows(results, launches, suffix, striped=False) -> list:
     """The `kernels` line's rows of one mode; the matching row averages
     the left and right passes.  striped: phase 9's sharded modes (K1, K2,
@@ -1400,7 +1628,10 @@ def main() -> int:
     print(json.dumps({"phase_9_s": time.perf_counter() - t, "card": card}),
           flush=True)
 
-    # 10. summary lines
+    # 10. the viewer and the profiler
+    drive_viewer(scenes, outs_by_mode, calib, card)
+
+    # 11. summary lines
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,9 +11,11 @@ parser (test.py) works unchanged.
 The engines run on the card; main(argv, device="cpu") runs them on the CPU
 (the keyword is not a command-line flag).  -o detects on every left frame
 (YOLOv4-tiny, -ycfg / -yw / -ycl) on a thread of its own, tracks the boxes
-and prints each detection's mean 3-D position.  The viewer (-g, --view3d,
---record) is parsed but not ported yet: a run that sets one of its flags
-stops with exit code 2 before any frame.
+and prints each detection's mean 3-D position.  -g, --view3d and --record
+feed every frame, with its detections and their cubes, to a LiveViewer
+(viz_live.py): the cloud is rendered where it lies (on the card unless a
+dump fetched it), windows open only where a display is found, and
+--record spools the rendered frames to a directory.
 
 Run: python -m stereovision_tpu_torch --kitti /path/to/kitti_mini
 """
@@ -35,11 +37,6 @@ _PKG_DIR = osp.dirname(osp.abspath(__file__))
 # -P without --profile_dir: the reference's golden pairs, where a checkout
 # of the repository holds them
 DEFAULT_PROFILE_DIR = osp.join(osp.dirname(_PKG_DIR), "datasets", "profile")
-# flags parsed as the JAX CLI parses them, whose module comes with a later
-# slice of the port (ROADMAP Queue 1 step 5)
-NOT_PORTED = {"display": ("-g", "live viewer"),
-              "view3d": ("--view3d", "live viewer"),
-              "record": ("--record", "live viewer")}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -91,14 +88,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("-sw", "--swap", action="store_true",
                     help="Swap left/right cameras in live mode")
     ap.add_argument("-g", "--display", action="store_true",
-                    help="Show Detections/Disparity windows (not ported "
-                         "yet)")
+                    help="Show Detections/Disparity windows (reference "
+                         "stereo_vision.cpp:616-620); degrades to "
+                         "render-only on display-less hosts")
     ap.add_argument("--view3d", action="store_true",
-                    help="Interactive 3D point-cloud window (not ported "
-                         "yet); implies --display")
+                    help="Interactive 3D point-cloud window with WASD/RF "
+                         "camera and tracked-object cubes (reference "
+                         "graphing.h viewer); implies --display")
     ap.add_argument("--record", type=str, default=None,
                     help="Directory to spool rendered viewer frames to "
-                         "(not ported yet); implies --display")
+                         "(works headless); implies --display")
     return ap
 
 
@@ -178,13 +177,6 @@ def main(argv=None, device=None) -> int:
     """Run the CLI on argv (sys.argv[1:] when None).  device: where the
     engines run, the card when None (raises without CUDA)."""
     args = build_parser().parse_args(argv)
-    unported = [(flag, what) for key, (flag, what) in NOT_PORTED.items()
-                if getattr(args, key) not in (None, False)]
-    if unported:
-        print("%s: not ported yet: %s" % (
-            PROG, ", ".join("%s (the %s slice)" % fw for fw in unported)),
-              file=sys.stderr)
-        return 2
     device = resolve_device(device)
     if args.profile:
         return run_profile(args, device)
@@ -222,6 +214,12 @@ def main(argv=None, device=None) -> int:
         tracker = BayesianTracker()
         detector = YoloV4Tiny.from_files(args.yolo_cfg, args.yolo_weights,
                                          args.yolo_classes, device=device)
+
+    viewer = None
+    if args.display or args.view3d or args.record:
+        from .viz_live import LiveViewer
+        viewer = LiveViewer(view3d=args.view3d, record_dir=args.record,
+                            device=device)
 
     n_frames = args.frames or len(seq)
 
@@ -292,10 +290,14 @@ def main(argv=None, device=None) -> int:
                       for d, xyz in zip(dets, pos)]
 
     def handle(i, out, left):
-        # left: the frame that detection, and the viewer once it is ported
-        # (with the cubes), consume
+        # left: the frame that detection and the viewer consume
+        dets, cubes = [], []
         if detector is not None:
-            track(i, out, left)
+            dets, cubes = track(i, out, left)
+        if viewer is not None:
+            viewer.show(out, left, dets,
+                        fps=1 / max(out["timings"]["t_t"], 1e-9),
+                        cubes=cubes)
         if args.dump == "ply":
             from .viz import save_ply
             save_ply(np.asarray(out["points"]),
@@ -325,7 +327,8 @@ def main(argv=None, device=None) -> int:
     fps_accum = 0.0
     count = 0
     # host fetch only when frames must be materialized (dumps); tracking
-    # alone consumes the cloud on the device (object_positions)
+    # (object_positions) and the viewer's renderer consume the cloud on
+    # the device
     fetch = "host" if args.dump != "none" else "dmap"
     try:
         with StereoEngine(args.camera_calibration, W, H, scale=args.scale,

@@ -8,8 +8,9 @@ stereovision_tpu_torch), run in process with main(..., device="cpu")
 beside the JAX package's main() on the same KITTI-layout directory: npz,
 ply and top-view dumps and -P's PGMs byte for byte, the per-frame and
 AVG_FPS lines, --batch, -o's detection lines (after the detections'
-decision margins are asserted), live mode on a stand-in camera, the flags
-not ported yet, and the import hygiene of a CLI run.
+decision margins are asserted), live mode on a stand-in camera, the
+viewer's flags (-g, --view3d, --record) with their recorded windows, and
+the import hygiene of a CLI run.
 """
 
 import dataclasses
@@ -518,28 +519,96 @@ def test_run_live_on_stand_in_cameras(monkeypatch, capsys, swap):
         assert LINE.match(line).groups() == (str(CH), str(CW))
 
 
-@pytest.mark.parametrize("flags", [["-g"], ["--view3d"], ["--record", "r"],
-                                   ["-o", "-g"], ["-o", "--view3d"],
-                                   ["-ycfg", "x.cfg", "-g"],
-                                   ["-yw", "w", "--record", "r"],
-                                   ["-ycl", "c", "-g", "--view3d"]])
-def test_flags_not_ported_return_2(kitti_dir, monkeypatch, capsys, flags):
-    """The viewer's flags stop the run before any engine is made, with or
-    without the detection flags (which are ported)."""
-    def refuse(*args, **kwargs):
-        raise AssertionError("an engine was made")
-    monkeypatch.setattr(cli, "StereoEngine", refuse)
-    assert cli.main(["-k", kitti_dir] + flags, device="cpu") == 2
-    out = capsys.readouterr()
-    assert out.out == ""
-    err = out.err.strip().splitlines()
-    assert len(err) == 1 and "not ported yet" in err[0]
-    viewer = [f for f in flags if f in ("-g", "--view3d", "--record")]
-    for flag in viewer:
-        assert flag in err[0]
-    assert "live viewer" in err[0] and "detection" not in err[0]
-    for flag in ("-o", "-ycfg", "-yw", "-ycl"):
-        assert flag not in err[0]
+# the viewer's flag sets, each run with --record by both CLIs
+VIEWER_FLAGS = {"g": ["-g"], "view3d": ["--view3d"],
+                "g_view3d": ["-g", "--view3d"], "record": [],
+                "view3d_sub": ["--view3d", "-s", "1"],
+                "view3d_batch": ["--view3d", "--batch", "2"],
+                "view3d_npz": ["--view3d", "--dump", "npz"],
+                "view3d_o": ["--view3d", "-o"]}
+
+
+def _spy_viewer(monkeypatch, viewer_cls, shown):
+    """Record each show()'s detections and fps."""
+    real = viewer_cls.show
+
+    def show(self, out, left, detections=(), fps=None, cubes=None):
+        shown.append((list(detections), fps, list(cubes or [])))
+        return real(self, out, left, detections, fps=fps, cubes=cubes)
+    monkeypatch.setattr(viewer_cls, "show", show)
+
+
+def _glyph_boxes(shape, detections, fps):
+    """The pixels of the detections window the text may reach: each text's
+    box [x - 1, x + width] x [y - height, y + baseline] (cv2's
+    antialiased text stays inside it)."""
+    font = cv2.FONT_HERSHEY_SIMPLEX
+    texts = [("%s: %.2f" % (d.name, d.conf), int(d.x), int(d.y), 0.5, 1)
+             for d in detections]
+    mask = np.zeros(shape[:2], bool)
+    for text, x, y, scale, thick in texts + [("FPS: %.2f" % fps, 8, None,
+                                              0.7, 2)]:
+        (tw, th), base = cv2.getTextSize(text, font, scale, thick)
+        y = 24 if y is None else max(y, th + 2)
+        mask[max(y - th, 0):max(y + base + 1, 0),
+             max(x - 1, 0):max(x + tw + 1, 0)] = True
+    return mask
+
+
+@pytest.mark.parametrize("name", list(VIEWER_FLAGS))
+def test_cli_viewer_records_jax_files(kitti_dir, jax_main, yolo_files,
+                                      tmp_path, monkeypatch, capsys, name):
+    """-g / --view3d / --record, alone and with -s 1, --batch 2, --dump npz
+    (fetch "host": the coloured cloud) and -o (detections, tracked, and
+    their cubes; the synthetic frames' box means are not finite, so no
+    cube edge lands on the image): the port's CLI and the JAX CLI side by
+    side on a display-less host, each with --record.  Both exit 0 and
+    record the same files; the cloud and disparity windows byte for byte;
+    the detections window outside its text boxes, each run's boxes from
+    the detections and fps its viewer was given."""
+    from stereovision_tpu import viz_live as jviz_live
+    from stereovision_tpu_torch import viz_live
+    for var in ("DISPLAY", "WAYLAND_DISPLAY"):
+        monkeypatch.delenv(var, raising=False)
+    flags = list(VIEWER_FLAGS[name])
+    if "-o" in flags:
+        flags += ["-ycfg", yolo_files[0], "-yw", yolo_files[1]]
+    shown = {"port": [], "jax": []}
+    _spy_viewer(monkeypatch, viz_live.LiveViewer, shown["port"])
+    _spy_viewer(monkeypatch, jviz_live.LiveViewer, shown["jax"])
+    rec = {k: tmp_path / ("rec_" + k) for k in shown}
+    assert cli.main(_kitti_args(kitti_dir, str(tmp_path / "p"), "--record",
+                                str(rec["port"]), *flags),
+                    device="cpu") == 0
+    assert jax_main(_kitti_args(kitti_dir, str(tmp_path / "j"), "--record",
+                                str(rec["jax"]), *flags)) == 0
+    capsys.readouterr()
+    windows = ["detections", "disparity"] + (
+        ["cloud"] if "--view3d" in flags else [])
+    names = sorted("%s_%06d.png" % (w, i) for w in windows
+                   for i in range(FRAMES))
+    assert sorted(os.listdir(rec["port"])) == names
+    assert sorted(os.listdir(rec["jax"])) == names
+    assert len(shown["port"]) == len(shown["jax"]) == FRAMES
+    n_dets = 0
+    for i, (port, ref) in enumerate(zip(shown["port"], shown["jax"])):
+        assert [dataclasses.replace(d, conf=0) for d in port[0]] == [
+            yolo.Detection(**dict(dataclasses.asdict(d), conf=0))
+            for d in ref[0]]
+        assert len(port[2]) == len(ref[2]) == len(port[0])
+        n_dets += len(port[0])
+        for w in windows:
+            f = "%s_%06d.png" % (w, i)
+            got = (rec["port"] / f).read_bytes()
+            want = (rec["jax"] / f).read_bytes()
+            if w != "detections":
+                assert got == want, f
+                continue
+            a, b = (cv2.imread(str(rec[k] / f)) for k in ("port", "jax"))
+            mask = (_glyph_boxes(a.shape, port[0], port[1])
+                    | _glyph_boxes(b.shape, ref[0], ref[1]))
+            assert not ((a != b).any(axis=2) & ~mask).any(), f
+    assert (n_dets > 0) == ("-o" in flags)
 
 
 FPS_LINE = re.compile(r"^\(FPS=[0-9.]+\) (\(\d+, \d+\)) \(t_t=[0-9.]+, "
