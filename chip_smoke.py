@@ -114,11 +114,28 @@ then:
      equal bit for bit; profile_pipeline's four sections in both modes;
      and device_trace around one process_frame, whose Chrome trace must
      name the CUDA functions of all four kernels;
+  11. the one-dispatch modes, on the 8 frames of phase 5, in each mode:
+     ElasEngine.process_jit (stage A and stage B each one replay of a CUDA
+     graph, the host middle between them), its graphs made at the first
+     call (seconds, each graph's capture seconds, memory reserved before
+     and after), then the 8 frames with the launch counts zeroed just
+     before and read just after (one a frame, K1 two), every D1 and D2
+     equal bit for bit to eager ElasEngine.process; frame ms of both
+     paths in interleaved turns (eager, graphs, graphs, eager), each
+     stage's host ms to a synchronise, two frames of each under
+     torch.profiler (idle share, the runtime's launch calls); then
+     StereoEngine.stream_batched(fused=True) at phase 6's batch and
+     settings: its 3 graph pairs made (seconds, memory), fused and
+     unfused runs of 5 batches and 3 frames in interleaved turns, every
+     frame equal to phase 5's process_frame bit for bit, launch counts
+     one a batch, whole-run frames/s of both, two batches of each under
+     torch.profiler.  A capture that fails fails the run;
 and last:
-  11. one JSON line per kernel result, one `{"kernels": [...]}` line with
+  12. one JSON line per kernel result, one `{"kernels": [...]}` line with
      a row per kernel and mode, single-frame, batched and striped (each
-     row names the design that replaced the kernel's first one), the card
-     line, and `{"ok": true, "device": {...}}`.
+     row names the design that replaced the kernel's first one, and the
+     path that replays that mode inside a CUDA graph with its launches
+     there), the card line, and `{"ok": true, "device": {...}}`.
 
 It exits non-zero, printing no result, when CUDA is not available or the
 package is not beside it.  Every time printed names the card and its power
@@ -284,8 +301,13 @@ def profile(run) -> dict:
         wall_us = 1e6 * (time.perf_counter() - t)
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
+    calls = {}
+    for e in prof.events():
+        # the runtime's launch calls: cudaLaunchKernel, cudaGraphLaunch, ...
+        if e.device_type == DeviceType.CPU and "Launch" in e.name:
+            calls[e.name] = calls.get(e.name, 0) + 1
     if not spans:
-        return {"device_busy": "not measured"}
+        return {"device_busy": "not measured", "launch_calls": calls}
     busy, end, by_name = 0.0, float("-inf"), {}
     for s, e, name in spans:
         busy += max(0.0, e - max(s, end))
@@ -297,7 +319,7 @@ def profile(run) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "device_idle_share": 1 - busy / wall_us,
-            "device_ms_by_kernel": dict(top)}
+            "device_ms_by_kernel": dict(top), "launch_calls": calls}
 
 
 def check_kernels(eng, p, frames, card, mode) -> dict:
@@ -1525,6 +1547,171 @@ def drive_viewer(scenes, outs_by_mode, calib, card) -> None:
           flush=True)
 
 
+ONE_DISPATCH_TURNS = ("eager", "graphs", "graphs", "eager")   # interleaved
+# the kernel modes the one-dispatch paths replay inside their graphs
+GRAPH_PATHS = {"": "ElasEngine.process_jit",
+               "_batched": "stream_batched(fused=True)"}
+FUSED_BATCHES = 5            # phase 11: whole batches a stream_batched turn
+
+
+def check_process_jit(elas, grays, card, mode) -> dict:
+    """Phase 11's ElasEngine.process_jit for one mode: its graphs made at
+    the first call (time, memory), then the frames with the launch counts
+    zeroed just before and read just after, every D1 and D2 equal to eager
+    process; frame ms of the two paths in interleaved turns, the host ms
+    of each stage (graph replay or eager ops, to a synchronise), and a
+    profile of two frames of each.  Returns the launch counts."""
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_reserved()
+    t = time.perf_counter()
+    elas.process_jit(*grays[0])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    mem1 = torch.cuda.memory_reserved()
+    stage_a, stage_b = elas.process_jit.graphs
+    zero_counts()
+    got = [elas.process_jit(*g) for g in grays]
+    torch.cuda.synchronize()
+    launches = read_counts()
+    assert launches == per_frame_counts(elas.p, len(grays)), launches
+    for i, (g, (D1, D2)) in enumerate(zip(grays, got)):
+        E1, E2 = elas.process(*g)
+        assert torch.equal(D1, E1) and torch.equal(D2, E2), (mode, i)
+
+    paths = {"eager": elas.process, "graphs": elas.process_jit}
+    frame_ms = {k: [] for k in paths}
+    for name in ONE_DISPATCH_TURNS:
+        for g in grays:
+            t = time.perf_counter()
+            paths[name](*g)
+            torch.cuda.synchronize()
+            frame_ms[name].append(1e3 * (time.perf_counter() - t))
+    stage_ms = {k: [] for k in ("graph_a", "eager_a", "graph_b", "eager_b")}
+    for g in grays[:3]:
+        t0 = time.perf_counter()
+        d1, d2, dc = stage_a(*g)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        buf = elas.pack_geometry(elas.host_mid(dc.cpu().numpy()))
+        t2 = time.perf_counter()
+        stage_b(d1, d2, buf)              # the geometry's copy included
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        e1, e2, edc = elas.stage_support(*g)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        geo = elas.host_mid(edc.cpu().numpy())
+        t5 = time.perf_counter()
+        elas.stage_dense(e1, e2, *elas.upload_geometry(geo))
+        torch.cuda.synchronize()
+        t6 = time.perf_counter()
+        for k, dt in zip(stage_ms, (t1 - t0, t4 - t3, t3 - t2, t6 - t5)):
+            stage_ms[k].append(1e3 * dt)
+    profiles = {k: profile(lambda: [paths[k](*g) for g in grays[:2]])
+                for k in paths}
+    print(json.dumps({"process_jit": {
+        "mode": mode, "frames": len(grays), "launches": launches,
+        "equal_to_process": "every frame, D1 and D2 bit for bit",
+        "build_s": build_s,
+        "capture_s": {"stage_a": stage_a.capture_s,
+                      "stage_b": stage_b.capture_s},
+        "memory_reserved_bytes": {"before": mem0, "after": mem1},
+        "turns": list(ONE_DISPATCH_TURNS),
+        "frame_ms_median": {k: float(np.median(v))
+                            for k, v in frame_ms.items()},
+        "frame_ms": frame_ms,
+        "stage_ms_median": {k: float(np.median(v))
+                            for k, v in stage_ms.items()},
+        "profile_2_frames": profiles, "card": card}}), flush=True)
+    return launches
+
+
+def check_fused(eng, scenes, outs, card, mode) -> dict:
+    """Phase 11's stream_batched(fused=True) for one mode, at phase 6's
+    batch and settings: its pipeline_depth graph pairs made (time,
+    memory), then fused and unfused runs of FUSED_BATCHES batches and 3
+    frames in interleaved turns after a warm-up of each, every frame equal
+    to phase 5's process_frame (outs), launch counts one a batch;
+    whole-run frames/s, and a profile of two batches of each.  Returns the
+    fused runs' launch counts."""
+    B = BATCH[mode]
+    frames = [(lf, rf) for lf, rf, _ in scenes[1:]]
+    run = dict(batch=B, fetch="host", pipeline_depth=3,
+               host_workers="process")
+
+    def seq(n):
+        return (frames[i % len(frames)] for i in range(n))
+
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_reserved()
+    t = time.perf_counter()
+    pairs = eng.fused_graphs(B, run["pipeline_depth"])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    mem1 = torch.cuda.memory_reserved()
+    for fused in (True, False):
+        assert len(list(eng.stream_batched(seq(2 * B), fused=fused,
+                                           **run))) == 2 * B
+    n = FUSED_BATCHES * B + 3            # a short, padded last batch
+    n_batches = -(-n // B)
+    rates = {True: [], False: []}
+    launches = None
+    for name in ONE_DISPATCH_TURNS:
+        fused = name == "graphs"
+        torch.cuda.synchronize()
+        zero_counts()
+        t = time.perf_counter()
+        got = list(eng.stream_batched(seq(n), fused=fused, **run))
+        rates[fused].append(n / (time.perf_counter() - t))
+        counts = read_counts()
+        assert counts == per_frame_counts(eng.p, n_batches), (fused, counts)
+        assert eng.host_mode == "process", eng.host_mode
+        assert len(got) == n
+        for i, out in enumerate(got):
+            ref = outs[i % len(frames)]
+            assert np.array_equal(out["dmap"], ref["dmap"]), (fused, i)
+            assert np.array_equal(out["points"], ref["points"]), (fused, i)
+        if fused:
+            launches = counts
+    profiles = {k: profile(lambda: list(eng.stream_batched(
+        seq(2 * B), fused=k == "graphs", **run))) for k in ("eager",
+                                                            "graphs")}
+    print(json.dumps({"stream_batched_fused": {
+        "mode": mode, "batch": B, "pipeline_depth": run["pipeline_depth"],
+        "host_workers": "process", "fetch": "host", "frames": n,
+        "batches": n_batches, "launches": launches,
+        "equal_to_process_frame": "every frame of every turn, dmap and "
+                                  "points bit for bit",
+        "build_s": build_s,
+        "capture_s": [[a.capture_s, b.capture_s] for a, b in pairs],
+        "memory_reserved_bytes": {"before": mem0, "after": mem1},
+        "turns": list(ONE_DISPATCH_TURNS),
+        "frames_per_s": {"fused": rates[True], "unfused": rates[False]},
+        "profile_2_batches": profiles, "card": card}}), flush=True)
+    return launches
+
+
+def drive_one_dispatch(scenes, outs_by_mode, calib, card) -> dict:
+    """Phase 11: the one-dispatch modes in both modes, on phase 5's frames
+    (outs_by_mode: its process_frame outputs).  Returns the launch counts
+    by mode (single frame: process_jit; "_batched":
+    stream_batched(fused=True))."""
+    from stereovision_tpu_torch.engine import StereoEngine, bgr_to_gray
+    from stereovision_tpu_torch.params import app_params
+    t = time.perf_counter()
+    grays = [(bgr_to_gray(lf), bgr_to_gray(rf)) for lf, rf, _ in scenes[1:]]
+    launches = {}
+    for mode, p in (("full", app_params()),
+                    ("subsampled", app_params(subsampling=True))):
+        with StereoEngine(calib, W, H, params=p) as eng:
+            launches[mode] = check_process_jit(eng.elas, grays, card, mode)
+            launches[mode + "_batched"] = check_fused(
+                eng, scenes, outs_by_mode[mode], card, mode)
+    print(json.dumps({"phase_11_s": time.perf_counter() - t, "card": card}),
+          flush=True)
+    return launches
+
+
 def kernel_rows(results, launches, suffix, striped=False) -> list:
     """The `kernels` line's rows of one mode; the matching row averages
     the left and right passes.  striped: phase 9's sharded modes (K1, K2,
@@ -1631,7 +1818,19 @@ def main() -> int:
     # 10. the viewer and the profiler
     drive_viewer(scenes, outs_by_mode, calib, card)
 
-    # 11. summary lines
+    # 11. the one-dispatch modes: the stages as CUDA graph replays
+    graph_launches = drive_one_dispatch(scenes, outs_by_mode, calib, card)
+    for row in rows:
+        name = next(k for k in SOURCES if row["name"].startswith(k))
+        rest = row["name"][len(name):]
+        variant = rest.removesuffix("_subsampled")
+        mode = ("subsampled" if rest.endswith("_subsampled") else "full") \
+            + variant
+        row["graph_replays"] = ({GRAPH_PATHS[variant]:
+                                 graph_launches[mode][name]}
+                                if variant in GRAPH_PATHS else {})
+
+    # 12. summary lines
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -13,13 +13,18 @@ launched once a batch, through a prefetch thread, `pipeline_depth` tail
 workers and a spawn process pool for the host middle.  On the card every
 thread of the pipeline launches on a CUDA stream of its own; a tensor made
 on one thread's stream and read on another's is ordered by an event and
-kept from reuse by record_stream.
+kept from reuse by record_stream.  stream_batched(fused=True) is the
+one-dispatch mode (engine.py:297-336): each batch's stage A and stage B
+with the reprojection are one replay of a CUDA graph each
+(ElasEngine.stage_graphs), from `pipeline_depth` pairs of graphs made on
+the caller's thread before the pipeline starts.
 """
 
 from __future__ import annotations
 
 import collections
 import os.path as osp
+import queue
 import threading
 import time
 import warnings
@@ -91,6 +96,14 @@ class StereoEngine:
         self.pc_h = self.height * pc_extrapolation
         self.rect: Rectification = rectification_from_yaml(
             calibration_yaml, self.width, self.height, scale_factor=scale)
+        # Q, XR and XT on the device, made here once for every thread (a
+        # CUDA graph capture of the reprojection copies nothing from the
+        # host)
+        self._rect_t = tuple(
+            torch.as_tensor(np.asarray(m, np.float32), device=self.device)
+            for m in (self.rect.Q, self.rect.XR, self.rect.XT))
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
         self.elas = ElasEngine(self.p, self.width, self.height,
                                device=self.device)
         # The reference feeds the uint8 display disparity (4x true) into Q
@@ -104,6 +117,8 @@ class StereoEngine:
         self._pc_taps: Dict[tuple, tuple] = {}
         self._lock = threading.Lock()
         self._executors = None
+        # stream_batched(fused=True)'s graph pairs, by batch size
+        self._fused: Dict[int, list] = {}
         # how the last stream_batched ran its host middle: "process" or,
         # where the pool's processes could not start, "thread"
         self.host_mode: Optional[str] = None
@@ -138,6 +153,7 @@ class StereoEngine:
             for e in self._executors[:3]:
                 e.shutdown(wait=True, cancel_futures=True)
             self._executors = None
+        self._fused = {}
         self.elas.close()
 
     def __enter__(self):
@@ -175,9 +191,10 @@ class StereoEngine:
                                 *self.pc_taps(tuple(dmap.shape[-2:])))
         if self.true_scale_cloud:
             d_for_q = d_for_q / self.disp_display_scale
-        points = reproject(d_for_q, self.rect.Q)
+        Q, XR, XT = self._rect_t
+        points = reproject(d_for_q, Q)
         if self.robot_frame:
-            points = apply_robot_transform(points, self.rect.XR, self.rect.XT)
+            points = apply_robot_transform(points, XR, XT)
         return dmap, points
 
     def _run_dense(self, desc1, desc2, g):
@@ -268,7 +285,8 @@ class StereoEngine:
     def stream_batched(self, frames: Iterable[Tuple[np.ndarray, np.ndarray]],
                        batch: int = 4, fetch: str = "dmap",
                        pipeline_depth: int = 2,
-                       host_workers: str = "process") -> Iterator[Dict]:
+                       host_workers: str = "process",
+                       fused: bool = False) -> Iterator[Dict]:
         """Throughput mode: frames in batches of `batch`, each kernel
         launched once a batch (K1 once a pass).  The stages of a batch run
         on a tail worker, `pipeline_depth` batches in flight: support grid
@@ -279,6 +297,12 @@ class StereoEngine:
         upload and stage A of the next batches run on a prefetch thread.
         A short last batch is padded with its last frame.  host_mode
         records how the host middle of the last call ran.
+
+        fused=True: the one-dispatch mode.  The prefetch thread only
+        converts and uploads the pairs; the tail worker runs stage A and
+        then stage B with the frame tail each as one replay of a CUDA graph
+        (fused_graphs), around the same fetch, host middle and upload.  A
+        capture that fails raises; on the CPU the stages run eagerly.
 
         Yields {"dmap", "points", "timings"} per frame, in order: fetch
         "host" gives NumPy dmap and (pc_h*pc_w, 3) points, "dmap" NumPy
@@ -292,6 +316,12 @@ class StereoEngine:
         cuda = self.device.type == "cuda"
         # this call's host-middle mode; only the caller's thread publishes it
         host_mode = {"mode": host_workers}
+        if fused:
+            # a pair of graphs for each tail in flight, each with static
+            # tensors of its own, captured here before any worker runs
+            free = queue.SimpleQueue()
+            for pair in self.fused_graphs(batch, max(pipeline_depth, 1)):
+                free.put(pair)
 
         def next_batch():
             fs = []
@@ -308,8 +338,9 @@ class StereoEngine:
             pairs = np.stack([[bgr_to_gray(lf), bgr_to_gray(rf)]
                               for lf, rf in fs])      # (B, 2, H, W): 1 H2D
             t0 = time.perf_counter()
-            pairs = upload(pairs, self.device)
-            out = self.elas.stage_support_batched(pairs)
+            out = upload(pairs, self.device)
+            if not fused:
+                out = self.elas.stage_support_batched(out)
             return t0, n_real, out, _record(cuda)
 
         def host_middle(d_cans):
@@ -334,13 +365,32 @@ class StereoEngine:
         def run_tail(entry):
             t0, n, out, ready = entry
             _wait(cuda, ready, out)
+            if fused:
+                stage_a, stage_b = free.get()
+                try:
+                    return tail(t0, n, stage_a(out), stage_b)
+                finally:
+                    # every fetch and clone of the pair's outputs is done:
+                    # tail ends with this stream synchronised
+                    free.put((stage_a, stage_b))
+            return tail(t0, n, out, None)
+
+        def tail(t0, n, out, stage_b):
             desc1, desc2, d_can = out
             gs = host_middle(to_host(d_can))
             msgs = [m for g in gs for m in g["warnings"]]
-            buf = upload(np.stack([self.elas.pack_geometry(g) for g in gs]),
-                         self.device)                   # 1 H2D
-            D1, _ = self.elas.stage_dense_batched(desc1, desc2, buf)
-            dmap, points = self.reproject(D1)
+            buf = np.stack([self.elas.pack_geometry(g) for g in gs])
+            if stage_b is not None:
+                # into the graph's static buffer: 1 H2D
+                dmap, points = stage_b(desc1, desc2, buf)
+                if fetch == "device":
+                    dmap = dmap.clone()
+                if fetch != "host":
+                    points = points.clone()
+            else:
+                D1, _ = self.elas.stage_dense_batched(
+                    desc1, desc2, upload(buf, self.device))     # 1 H2D
+                dmap, points = self.reproject(D1)
             if fetch in ("host", "dmap"):
                 dmap = to_host(dmap)
             t_dmap = time.perf_counter()
@@ -400,13 +450,28 @@ class StereoEngine:
                     yield from emit(pending.popleft().result())
         finally:
             self.host_mode = host_mode["mode"]
-            if host_mode["mode"] != host_workers:
-                # the broken pool goes once the call's batches are done;
-                # the next call makes a new one
+            broken = host_mode["mode"] != host_workers
+            if broken or fused:
+                # the broken pool goes once the call's batches are done
+                # (the next call makes a new one); the graphs of a call
+                # left early go back before the next call takes them
                 for f in pending:
                     f.cancel()
                 futures_wait(pending)
+            if broken:
                 self.elas.close()
+
+    def fused_graphs(self, batch: int, count: int) -> list:
+        """`count` pairs of graphs (stage A, stage B with reproject) of
+        stream_batched(fused=True) at this batch size, each with static
+        tensors and a memory pool of its own (ElasEngine.stage_graphs); made
+        on the calling thread at first need and kept until close()."""
+        have = self._fused.setdefault(batch, [])
+        while len(have) < count:
+            have.append(self.elas.stage_graphs(
+                batch, tail=lambda D1, D2: self.reproject(D1),
+                name="stream_batched(fused=True), batch %d" % batch))
+        return have[:count]
 
     # -- object fusion -------------------------------------------------------
 

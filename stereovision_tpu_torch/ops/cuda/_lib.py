@@ -12,7 +12,9 @@ import: the library is built at the first kernel launch.
 The streaming paths launch from several threads: the first build and the
 wrappers' launch counters are guarded by locks (the counters are
 read-modify-writes), and each launch goes to the calling thread's current
-stream.
+stream.  Under a CUDA graph capture (graphs.py) a wrapper's call launches
+nothing: within recording() the calling thread's counts are recorded, and
+each replay of the graph adds them (add_counts).
 
 Under a mesh (parallel/ctx.py) the wrappers launch once per row stripe,
 on views of the frame where the stripe's device is the frame's: K1, K2
@@ -22,6 +24,7 @@ counts as one.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -59,6 +62,7 @@ _SIGNATURES = {
 }
 _build_lock = threading.Lock()
 _count_lock = threading.Lock()
+_recording = threading.local()
 _lib = None
 
 
@@ -105,9 +109,33 @@ def kernels() -> ctypes.CDLL:
 
 def count(namespace: dict, key: str = "launches") -> None:
     """Add one to a wrapper module's `launches` (pass its globals()), or
-    to its counter `key`, under a lock."""
+    to its counter `key`, under a lock; within recording() on this thread,
+    record the launch instead."""
+    rec = getattr(_recording, "counts", None)
+    if rec is not None:
+        rec.append((namespace, key))
+        return
     with _count_lock:
         namespace[key] += 1
+
+
+@contextlib.contextmanager
+def recording():
+    """Within the block, this thread's count() calls are recorded, not
+    added: yields the list of (namespace, key) they append to (a graph
+    capture, whose launches run only when the graph is replayed)."""
+    _recording.counts = rec = []
+    try:
+        yield rec
+    finally:
+        _recording.counts = None
+
+
+def add_counts(recorded) -> None:
+    """Add the counts that recording() recorded (one replay of a graph)."""
+    with _count_lock:
+        for namespace, key in recorded:
+            namespace[key] += 1
 
 
 def frames(t: torch.Tensor, single_ndim: int) -> int:

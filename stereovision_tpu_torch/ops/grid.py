@@ -22,7 +22,9 @@ def build_grid_mask(pts: torch.Tensor, p: ElasParams, width: int,
     The cell indices follow the JAX reference's scatter exactly: a negative
     index counts once from the end of its axis (as jnp indexing does; so a
     padded point, whose column is forced to -1, votes for the last column)
-    and what is still out of range is dropped (mode="drop")."""
+    and what is still out of range is dropped (mode="drop"): written to a
+    spare cell past the mask's end, so that no step depends on how many
+    points vote (a CUDA graph captures it)."""
     gw, gh = p.grid_dims(width, height)
     D = p.disp_num
     lead = pts.shape[:-2]
@@ -38,11 +40,14 @@ def build_grid_mask(pts: torch.Tensor, p: ElasParams, width: int,
     x = torch.where(x < 0, x + gw, x)
     y = torch.where(y < 0, y + gh, y)
     inb = (x >= 0) & (x < gw) & (y >= 0) & (y < gh)
-    mask = torch.zeros((pts.shape[0], D, gh, gw), dtype=torch.bool,
-                       device=pts.device)
+    cells = pts.shape[0] * D * gh * gw
+    flat = torch.zeros(cells + 1, dtype=torch.bool, device=pts.device)
+    vote = torch.ones((), dtype=torch.bool, device=pts.device)
     for dd in (-1, 0, 1):
         di = torch.clamp(d + dd, 0, p.disp_max)
-        mask[b[inb], di[inb], y[inb], x[inb]] = True
+        at = torch.where(inb, ((b * D + di) * gh + y) * gw + x, cells)
+        flat.index_put_((at.reshape(-1),), vote)
+    mask = flat[:cells].reshape(pts.shape[0], D, gh, gw)
     return _dilate3x3(mask).reshape(*lead, D, gh, gw)
 
 

@@ -41,7 +41,6 @@ from __future__ import annotations
 
 import functools
 
-import numpy as np
 import torch
 
 from ..params import ElasParams
@@ -77,8 +76,9 @@ def line_rows(desc: torch.Tensor, p: ElasParams, height: int = 0,
     H = height or desc.shape[-2]
     if count is None:
         count = p.out_shape(W, H)[0] - y0
-    rows = np.clip((y0 + np.arange(count)) * lattice_step(p), 2, H - 3)
-    return desc[..., torch.as_tensor(rows - row0, device=desc.device), :]
+    rows = torch.clamp((y0 + torch.arange(count, device=desc.device))
+                       * lattice_step(p), 2, H - 3)
+    return desc[..., rows - row0, :]
 
 
 def stripe_rows(p: ElasParams, height: int, y0: int, y1: int):
@@ -124,7 +124,7 @@ def plane_maps(tri_id: torch.Tensor, planes: torch.Tensor, p: ElasParams):
     d_plane = torch.trunc(fma32(a, uf, b * vf) + c).to(torch.int32)
     d_lo = torch.clamp(d_plane - p.plane_radius, min=0)
     d_hi = torch.clamp(d_plane + p.plane_radius, max=p.disp_num - 1)
-    lim = torch.tensor(0.7, dtype=torch.float32, device=dev)
+    lim = torch.full((), 0.7, dtype=torch.float32, device=dev)
     pvalid = ((torch.abs(a) < lim) & (torch.abs(a_other) < lim)).to(torch.int32)
     return d_lo, d_hi, d_plane, pvalid
 

@@ -39,7 +39,9 @@ _INVALID = -10.0
 
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=like.device)
+    """x as a float32 scalar tensor on like's device, made there (a CUDA
+    graph capture copies nothing from the host)."""
+    return torch.full((), x, dtype=torch.float32, device=like.device)
 
 
 def lr_warp_scale(p: ElasParams) -> float:

@@ -16,9 +16,10 @@ def expand_tri_spans(spans: torch.Tensor, width: int) -> torch.Tensor:
     """(..., H, S, 3) uint8 packed spans -> (..., H, width) int32 dense map
     (rows are independent: a batch is decoded as B H rows).
 
-    Out-of-range starts (the padding tail) are masked before the scatter,
-    as JAX's mode="drop" drops them; the forward fill is a cummax over the
-    column index of the last set position."""
+    Out-of-range starts (the padding tail) go to a spare column past the
+    row's end, which is then cut, as JAX's mode="drop" drops them (no step
+    depends on how many there are: a CUDA graph captures it); the forward
+    fill is a cummax over the column index of the last set position."""
     lead = spans.shape[:-2]
     spans = spans.reshape(-1, *spans.shape[-2:])
     gaps = spans[..., 0].to(torch.int64)
@@ -27,12 +28,12 @@ def expand_tri_spans(spans: torch.Tensor, width: int) -> torch.Tensor:
     starts = torch.cumsum(gaps, dim=-1)
     H = spans.shape[0]
     dev = spans.device
-    keep = starts < width
     rows = torch.arange(H, device=dev)[:, None].expand_as(starts)
-    dense = torch.full((H, width), _UNSET, dtype=torch.int32, device=dev)
+    spare = torch.full((H, width + 1), _UNSET, dtype=torch.int32, device=dev)
     # starts strictly increase along a row (every gap after the first is
-    # >= 1), so no two runs share a position
-    dense.index_put_((rows[keep], starts[keep]), ids[keep])
+    # >= 1), so no two runs share a position inside the row
+    spare.index_put_((rows, torch.clamp(starts, max=width)), ids)
+    dense = spare[:, :width]
     cols = torch.arange(width, device=dev)[None, :].expand(H, width)
     last = torch.cummax(torch.where(dense != _UNSET, cols, -1), dim=1).values
     # column 0 always starts a run, so every position has a last set one

@@ -146,40 +146,36 @@ def finalize_support(scan: torch.Tensor, desc1: torch.Tensor,
     dev = desc1.device
     step = p.step
     dmax = p.disp_max
-    Hc = -(-H // step)
-    vc = np.arange(Hc) * step
-    grid_cols = np.arange(-(-W // step)) * step
-    gcols = torch.as_tensor(grid_cols, device=dev)
+    d_min = max(p.disp_min, 0)
+    # every index and mask is made on the device (a CUDA graph capture
+    # copies nothing from the host)
+    vc = torch.arange(-(-H // step), device=dev) * step
+    gcols = torch.arange(-(-W // step), device=dev) * step
     f1e, f1d, f2e, f2d = (scan[..., k, :, :][..., gcols] for k in range(4))
     b1e, b1d, b2e, b2d = (scan[..., k, :, :] for k in range(4, 8))
 
-    def mask(x):
-        return torch.as_tensor(x, device=dev)
-
     tex1 = texture_sum(desc1)
     tex2 = texture_sum(desc2)
-    vc_clip = torch.as_tensor(np.clip(vc, 0, H - 1), device=dev)
+    vc_clip = torch.clamp(vc, 0, H - 1)
 
-    u_g = grid_cols[None, :]
+    u_g = gcols[None, :]
     v_g = vc[:, None]
-    border_ok_g = mask((u_g >= 5) & (u_g <= W - 6) & (v_g >= 5)
-                       & (v_g <= H - 6))
-    range_ok_left = mask(np.minimum(dmax, u_g - 5)
-                         - max(p.disp_min, 0) >= 10)
+    border_ok_g = (u_g >= 5) & (u_g <= W - 6) & (v_g >= 5) & (v_g <= H - 6)
+    range_ok_left = torch.clamp(u_g - 5, max=dmax) - d_min >= 10
     tex_ok_left = tex1[..., vc_clip, :][..., gcols] >= p.support_texture
 
-    thr = torch.tensor(p.support_threshold, dtype=torch.float32, device=dev)
+    thr = torch.full((), p.support_threshold, dtype=torch.float32,
+                     device=dev)
     uniq_f = ((f1d >= 0) & (f2d >= 0)
               & (f1e.to(torch.float32) < thr * f2e.to(torch.float32)))
     d_fwd = torch.where(uniq_f & border_ok_g & range_ok_left & tex_ok_left,
                         f1d, -1)
 
-    u_full = np.arange(W)[None, :]
-    border_ok_b = mask((u_full >= 5) & (u_full <= W - 6))
-    range_ok_right = mask(np.minimum(dmax, W - u_full - 5)
-                          - max(p.disp_min, 0) >= 10)
+    u_full = torch.arange(W, device=dev)[None, :]
+    border_ok_b = (u_full >= 5) & (u_full <= W - 6)
+    range_ok_right = torch.clamp(W - u_full - 5, max=dmax) - d_min >= 10
     tex_ok_right = tex2[..., vc_clip, :] >= p.support_texture
-    v_ok = mask(((vc >= 5) & (vc <= H - 6))[:, None])
+    v_ok = ((vc >= 5) & (vc <= H - 6))[:, None]
     uniq_b = ((b1d >= 0) & (b2d >= 0)
               & (b1e.to(torch.float32) < thr * b2e.to(torch.float32)))
     d_bwd = torch.where(uniq_b & border_ok_b & range_ok_right & v_ok

@@ -1,0 +1,531 @@
+"""The one-dispatch mode (graphs.StageGraph, ElasEngine.process_jit), held
+against the JAX package.
+
+On the CPU there is no graph: process_jit runs its two stages eagerly and
+must equal the JAX package's process_jit (the pure_callback path, as
+tests/test_engine.py runs it) and the port's process bit for bit, at
+160x120 in four presets, at full resolution and subsampled.  StageGraph's
+capture path and launch accounting run on a stand-in for
+torch.cuda.CUDAGraph, as does the pause of the cyclic collector while
+captures on two threads overlap.  stream_batched(fused=True) is held in tests/test_torch_stream.py.
+
+The tests marked `cuda` (skipped without a card) capture and replay the
+stages on the card: process_jit and the stages of a batch of 3 equal to
+the eager path, two graph pairs replayed from two threads, the launch
+counters after replays, stream_batched(fused=True) equal to
+process_frame, and a function that cannot be captured raising instead of
+running eagerly.  The JAX package is imported inside the tests that use
+it, so that the card's test run, which has no jax, can collect this file:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_graphs.py
+"""
+
+import dataclasses
+import gc
+import os.path as osp
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from stereovision_tpu_torch.convert import params_from_dict
+from stereovision_tpu_torch.engine import StereoEngine, bgr_to_gray
+from stereovision_tpu_torch.graphs import StageGraph
+from stereovision_tpu_torch.models.elas import ElasEngine
+from stereovision_tpu_torch.ops.cuda import (_lib, ccl_cu, lr_cu,
+                                             matching_cu, support_cu)
+from stereovision_tpu_torch.params import app_params, robotics_params
+from stereovision_tpu_torch.synthetic import stereo_pair
+
+ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
+CALIB = osp.join(ROOT, "stereovision_tpu_torch", "data",
+                 "kitti_2011_09_26.yml")
+W, H = 160, 120
+# name: (params function, keyword arguments); the same in both packages
+PRESETS = {
+    "app": ("app_params", {}),
+    "robotics": ("robotics_params", {}),
+    "app_sub": ("app_params", {"subsampling": True}),
+    "robotics_sub": ("robotics_params", {"subsampling": True}),
+}
+WRAPPERS = {"matching": matching_cu, "support": support_cu,
+            "lr_check": lr_cu, "speckle_ccl": ccl_cu}
+
+
+def _jax_params(name):
+    from stereovision_tpu import params as jparams
+    fn, kw = PRESETS[name]
+    return getattr(jparams, fn)(**kw).replace(disp_max=63)
+
+
+def _port_params(name):
+    fn, kw = PRESETS[name]
+    return {"app_params": app_params,
+            "robotics_params": robotics_params}[fn](**kw).replace(disp_max=63)
+
+
+def _gray_pair(seed, w=W, h=H):
+    left, right, _ = stereo_pair(w, h, seed)
+    return bgr_to_gray(left), bgr_to_gray(right)
+
+
+def _eq(port, ref):
+    port = port.cpu().numpy() if torch.is_tensor(port) else np.asarray(port)
+    ref = np.asarray(ref)
+    assert port.shape == ref.shape, (port.shape, ref.shape)
+    assert port.dtype == ref.dtype, (port.dtype, ref.dtype)
+    diff = port != ref
+    assert not diff.any(), "%d of %d elements differ" % (diff.sum(), diff.size)
+
+
+def test_port_presets_are_the_jax_presets():
+    for name in PRESETS:
+        assert _port_params(name) == params_from_dict(
+            dataclasses.asdict(_jax_params(name)))
+
+
+# ---- StageGraph on the CPU, with a stand-in for the CUDA graph -------------
+
+
+class StandIn:
+    """torch.cuda.CUDAGraph's interface on the CPU: the capture brackets a
+    call, which runs eagerly; a replay runs nothing and is counted."""
+
+    def __init__(self, fail_replay=False):
+        self.begun = self.ended = self.replays = 0
+        self.kwargs = None
+        self.fail_replay = fail_replay
+
+    def capture_begin(self, pool=None, capture_error_mode="global"):
+        self.begun += 1
+        self.kwargs = dict(pool=pool, capture_error_mode=capture_error_mode)
+
+    def capture_end(self):
+        self.ended += 1
+
+    def replay(self):
+        if self.fail_replay:
+            raise RuntimeError("CUDA error: an illegal memory access")
+        self.replays += 1
+
+    def pool(self):
+        return ("pool", id(self))
+
+
+def test_stage_graph_adds_recorded_launches_at_each_replay():
+    """The warm-up launches and counts; the capture records the counts and
+    adds none; each replay adds them, runs no Python, copies its inputs
+    into the static ones and hands back the static outputs."""
+    ns = {"launches": 0, "merges": 0}
+    calls = []
+
+    def fn(x):
+        calls.append(x.clone())
+        _lib.count(ns)
+        _lib.count(ns)
+        _lib.count(ns, "merges")
+        return x * 2, x + 1
+
+    x0 = torch.arange(6.0).reshape(2, 3)
+    sg = StageGraph("stage A", fn, (x0,), graph=StandIn)
+    assert len(calls) == 2                       # warm-up, capture
+    assert ns == {"launches": 2, "merges": 1}    # the warm-up's
+    assert sg.counts == [(ns, "launches")] * 2 + [(ns, "merges")]
+    assert sg.graph.begun == sg.graph.ended == 1
+    assert sg.graph.kwargs == {"pool": None,
+                               "capture_error_mode": "thread_local"}
+    assert sg.static[0] is x0
+    out = sg.outputs
+    for k in range(1, 4):
+        x = np.full((2, 3), float(k), np.float32)
+        assert sg(x) is out
+        assert torch.equal(sg.static[0], torch.from_numpy(x))
+        assert sg.graph.replays == k
+        assert ns == {"launches": 2 + 2 * k, "merges": 1 + k}
+    assert len(calls) == 2
+    assert sg(sg.static[0]) is out               # read in place
+    assert ns == {"launches": 10, "merges": 5}
+    b = StageGraph("stage B", lambda y: y * 3, (out[0],), pool=sg.pool,
+                   graph=StandIn)
+    assert b.graph.kwargs["pool"] == sg.pool
+    assert b.static[0] is out[0]
+    with pytest.raises(ValueError, match="stage A: an input of"):
+        sg(torch.zeros(3, 2))
+    with pytest.raises(ValueError, match="stage A: 2 inputs"):
+        sg(x0, x0)
+
+
+def test_stage_graph_capture_and_replay_failures_raise():
+    """A capture that fails raises RuntimeError naming the stage, closes
+    the capture and never runs the function eagerly in its place; so does
+    a failed replay, which adds no counts."""
+    ns = {"launches": 0}
+    n = [0]
+
+    def fn(x):
+        n[0] += 1
+        _lib.count(ns)
+        if n[0] == 2:
+            raise RuntimeError("operation not permitted when stream is "
+                               "capturing")
+        return x
+
+    graphs = []
+
+    def make():
+        graphs.append(StandIn())
+        return graphs[-1]
+
+    with pytest.raises(RuntimeError,
+                       match="stage B: CUDA graph capture failed") as info:
+        StageGraph("stage B", fn, (torch.zeros(2),), graph=make)
+    assert "not permitted" in str(info.value.__cause__)
+    assert n[0] == 2 and graphs[0].ended == 1
+    assert ns["launches"] == 1
+    _lib.count(ns)                       # recording ended with the failure
+    assert ns["launches"] == 2
+
+    sg = StageGraph("stage A", lambda x: (_lib.count(ns), x)[1],
+                    (torch.zeros(2),),
+                    graph=lambda: StandIn(fail_replay=True))
+    before = ns["launches"]
+    with pytest.raises(RuntimeError,
+                       match="stage A: CUDA graph replay failed"):
+        sg(torch.ones(2))
+    assert ns["launches"] == before
+
+
+def test_stage_graph_pauses_the_cyclic_collector_while_capturing():
+    """The capture runs with Python's cyclic collector off (it would run
+    destructors, such as a CUDA graph's, on the capturing thread), and the
+    collector is on again after it, also when the capture fails."""
+    seen = []
+
+    def fn(x):
+        seen.append(gc.isenabled())
+        return x
+
+    assert gc.isenabled()
+    StageGraph("stage A", fn, (torch.zeros(2),), graph=StandIn)
+    assert seen == [True, False] and gc.isenabled()
+
+    def failing(x):
+        seen.append(gc.isenabled())
+        if len(seen) == 4:
+            raise RuntimeError("capture failed")
+        return x
+
+    with pytest.raises(RuntimeError, match="capture failed"):
+        StageGraph("stage B", failing, (torch.zeros(2),), graph=StandIn)
+    assert seen[2:] == [True, False] and gc.isenabled()
+
+
+@pytest.mark.parametrize("initially_on", [True, False])
+def test_overlapping_captures_keep_the_collector_paused(initially_on):
+    """Captures on two threads overlap, and the first ends while the
+    second is still under way: the collector stays off until the last
+    capture ends, and is then as it was before the first."""
+    started = {"a": threading.Event(), "b": threading.Event()}
+    a_done = threading.Event()
+    seen, errors = {}, []
+
+    def capturing(name, other, wait_for_a):
+        calls = [0]
+
+        def fn(x):
+            calls[0] += 1
+            if calls[0] == 2:                    # under capture
+                started[name].set()
+                assert started[other].wait(60)
+                seen[name] = gc.isenabled()
+                if wait_for_a:
+                    assert a_done.wait(60)
+                    seen["b, a's capture over"] = gc.isenabled()
+            return x
+        return fn
+
+    def run(name, other, wait_for_a):
+        try:
+            StageGraph("stage " + name, capturing(name, other, wait_for_a),
+                       (torch.zeros(2),), graph=StandIn)
+            if not wait_for_a:
+                seen["a, its capture over"] = gc.isenabled()
+                a_done.set()
+        except Exception as err:             # reported by the main thread
+            errors.append(err)
+            a_done.set()
+
+    was_on = gc.isenabled()
+    (gc.enable if initially_on else gc.disable)()
+    try:
+        threads = [threading.Thread(target=run, args=("a", "b", False)),
+                   threading.Thread(target=run, args=("b", "a", True))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+        assert not errors, errors
+        assert seen == {"a": False, "b": False, "a, its capture over": False,
+                        "b, a's capture over": False}
+        assert gc.isenabled() == initially_on
+    finally:
+        (gc.enable if was_on else gc.disable)()
+
+
+def test_stage_graph_is_eager_on_the_cpu():
+    """With no graph on the CPU, each call runs the function on its inputs
+    (NumPy or tensors) and counts as the function does."""
+    ns = {"launches": 0}
+
+    def fn(x):
+        _lib.count(ns)
+        return x + 1
+
+    sg = StageGraph("stage A", fn, device="cpu")
+    assert sg.graph is None and sg.pool is None and ns["launches"] == 0
+    assert torch.equal(sg(np.zeros(3, np.int32)),
+                       torch.ones(3, dtype=torch.int32))
+    assert torch.equal(sg(torch.ones(2)), torch.full((2,), 2.0))
+    assert ns["launches"] == 2
+
+
+def test_recording_is_per_thread():
+    """While one thread records a capture, launches of other threads are
+    counted as they happen."""
+    ns = {"launches": 0}
+    with _lib.recording() as rec:
+        _lib.count(ns)
+        t = threading.Thread(target=lambda: [_lib.count(ns)
+                                             for _ in range(5)])
+        t.start()
+        t.join(timeout=60)
+        assert not t.is_alive()
+    assert rec == [(ns, "launches")]
+    assert ns["launches"] == 5
+    _lib.add_counts(rec)
+    assert ns["launches"] == 6
+
+
+# ---- process_jit against the JAX package ----------------------------------
+
+
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_process_jit_matches_jax_and_process(preset):
+    """Two frames through one engine's process_jit: D1 and D2 equal JAX's
+    process_jit and the port's process."""
+    import jax.numpy as jnp
+    from stereovision_tpu.models.elas import ElasEngine as JaxElas
+    je = JaxElas(_jax_params(preset), W, H)
+    pe = ElasEngine(_port_params(preset), W, H, device="cpu")
+    for seed in (3, 4):
+        L, R = _gray_pair(seed)
+        J1, J2 = je.process_jit(jnp.asarray(L), jnp.asarray(R))
+        D1, D2 = pe.process_jit(L, R)
+        E1, E2 = pe.process(L, R)
+        _eq(D1, J1)
+        _eq(D2, J2)
+        assert torch.equal(D1, E1) and torch.equal(D2, E2)
+    graphs = pe.process_jit.graphs
+    assert [g.graph for g in graphs] == [None, None]     # eager on the CPU
+    pe.close()
+    assert "process_jit" not in vars(pe)
+
+
+# ---- on the card -----------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the graphs capture and replay "
+                    "only on the card")
+    return torch.device("cuda")
+
+
+def _zero_counts():
+    for m in WRAPPERS.values():
+        m.launches = 0
+
+
+def _counts():
+    return {k: m.launches for k, m in WRAPPERS.items()}
+
+
+def _per_frame(p, n):
+    return {"matching": 2 * n, "support": n, "lr_check": n,
+            "speckle_ccl": n * (1 if p.postprocess_only_left else 2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["app", "robotics_sub"])
+def test_process_jit_on_the_card_equals_eager(cuda, preset):
+    """process_jit replays both stages from graphs: every frame equal to
+    eager process and to the CPU's, launch counts one a frame (K1 two)."""
+    p = _port_params(preset)
+    eng = ElasEngine(p, W, H, device=cuda)
+    cpu = ElasEngine(p, W, H, device="cpu")
+    frames = [_gray_pair(s) for s in range(3)]
+    eng.process_jit(*frames[0])
+    assert all(g.graph is not None for g in eng.process_jit.graphs)
+    _zero_counts()
+    got = [eng.process_jit(*f) for f in frames]
+    torch.cuda.synchronize()
+    assert _counts() == _per_frame(p, len(frames))
+    for f, (D1, D2) in zip(frames, got):
+        E1, E2 = eng.process(*f)
+        C1, C2 = cpu.process(*f)
+        assert torch.equal(D1, E1) and torch.equal(D2, E2)
+        assert torch.equal(D1.cpu(), C1) and torch.equal(D2.cpu(), C2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["app", "app_sub"])
+def test_stage_graphs_of_a_batch_equal_eager(cuda, preset):
+    """A batch of 3 through graphs A and B equals the eager batched
+    stages, stage by stage; each replay adds one launch a kernel."""
+    p = _port_params(preset)
+    eng = ElasEngine(p, W, H, device=cuda)
+    stage_a, stage_b = eng.stage_graphs(3)
+    assert stage_a.counts == [(vars(support_cu), "launches")]
+    pairs = np.stack([np.stack(_gray_pair(s)) for s in range(3)])
+    _zero_counts()
+    d1, d2, dc = stage_a(pairs)
+    e1, e2, edc = eng.stage_support_batched(pairs)
+    for a, b in ((d1, e1), (d2, e2), (dc, edc)):
+        assert torch.equal(a, b)
+    buf = np.stack([eng.pack_geometry(eng.host_mid(x))
+                    for x in edc.cpu().numpy()])
+    D1, D2 = stage_b(d1, d2, buf)
+    E1, E2 = eng.stage_dense_batched(e1, e2, torch.from_numpy(buf).to(cuda))
+    assert torch.equal(D1, E1) and torch.equal(D2, E2)
+    assert _counts() == {k: 2 * v for k, v in _per_frame(p, 1).items()}
+
+
+@pytest.mark.cuda
+def test_graph_pairs_replayed_from_two_threads(cuda):
+    """Two graph pairs, each replayed from its own thread on its own
+    stream, 4 frames each: every frame equal to eager process."""
+    p = _port_params("app")
+    eng = ElasEngine(p, W, H, device=cuda)
+    pairs = [eng.stage_graphs() for _ in range(2)]
+    frames = [_gray_pair(s) for s in range(8)]
+    refs = [tuple(x.clone() for x in eng.process(*f)) for f in frames]
+    torch.cuda.synchronize()
+    got = {}
+
+    def work(t):
+        torch.cuda.set_stream(torch.cuda.Stream(cuda))
+        stage_a, stage_b = pairs[t]
+        for i in range(t, len(frames), 2):
+            d1, d2, dc = stage_a(*frames[i])
+            buf = eng.pack_geometry(eng.host_mid(dc.cpu().numpy()))
+            got[i] = tuple(x.clone() for x in stage_b(d1, d2, buf))
+        torch.cuda.current_stream().synchronize()
+
+    threads = [threading.Thread(target=work, args=(t,)) for t in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert sorted(got) == list(range(len(frames)))
+    for i, ref in enumerate(refs):
+        assert all(torch.equal(a, b) for a, b in zip(got[i], ref)), i
+
+
+@pytest.mark.cuda
+def test_launch_counters_after_replays(cuda):
+    """The capture adds no launch and records the stage's; each replay
+    adds them."""
+    p = _port_params("app")
+    eng = ElasEngine(p, W, H, device=cuda)
+    _zero_counts()
+    stage_a, stage_b = eng.stage_graphs()
+    # the warm-ups launched once, and stage A replayed once for B's
+    assert _counts() == {"matching": 2, "support": 2, "lr_check": 1,
+                         "speckle_ccl": 1}
+    assert sorted(k for _, k in stage_b.counts) == ["launches"] * 4
+    f = _gray_pair(1)
+    _zero_counts()
+    for _ in range(5):
+        d1, d2, dc = stage_a(*f)
+        stage_b(d1, d2, eng.pack_geometry(eng.host_mid(dc.cpu().numpy())))
+    assert _counts() == _per_frame(p, 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fetch", ["host", "device"])
+def test_stream_batched_fused_on_the_card(cuda, fetch):
+    """stream_batched(fused=True): 5 frames at batch 2 (a padded last
+    batch) equal to process_frame, one launch a batch."""
+    p = _port_params("app")
+    eng = StereoEngine(CALIB, W, H, params=p, device=cuda)
+    frames = [stereo_pair(W, H, s)[:2] for s in range(5)]
+    refs = [eng.process_frame(lf, rf) for lf, rf in frames]
+    list(eng.stream_batched(iter(frames), batch=2, fused=True,
+                            host_workers="thread"))
+    _zero_counts()
+    outs = list(eng.stream_batched(iter(frames), batch=2, fetch=fetch,
+                                   fused=True, host_workers="thread"))
+    assert _counts() == _per_frame(p, 3)
+    for o, r in zip(outs, refs):
+        dmap = o["dmap"].cpu().numpy() if fetch == "device" else o["dmap"]
+        pts = o["points"]
+        pts = pts.cpu().numpy().reshape(-1, 3) if fetch == "device" else pts
+        assert np.array_equal(dmap, r["dmap"])
+        assert np.array_equal(pts, r["points"])
+    eng.close()
+
+
+@pytest.mark.cuda
+def test_capture_survives_a_cycle_holding_a_graph(cuda):
+    """A CUDA graph whose last reference moves into a reference cycle
+    during a capture, with enough allocations after it to start the
+    cyclic collector: destroying the graph there would void the capture,
+    so the collector waits until the capture is over."""
+    victims = [StageGraph("victim", lambda y: y + 1,
+                          (torch.ones(4, device=cuda),)).graph]
+    calls = [0]
+
+    class Holder:
+        pass
+
+    def fn(y):
+        calls[0] += 1
+        if calls[0] == 2:                # under capture
+            h = Holder()
+            h.me, h.graph = h, victims.pop()
+            del h
+            keep = [[] for _ in range(5000)]
+            del keep
+        return y * 2
+
+    sg = StageGraph("stage", fn, (torch.ones(4, device=cuda),))
+    assert not victims
+    assert torch.equal(sg(torch.full((4,), 3.0)).cpu(),
+                       torch.full((4,), 6.0))
+    gc.collect()
+
+
+@pytest.mark.cuda
+def test_uncapturable_function_raises(cuda):
+    """A function that reads a value back to the host cannot be captured:
+    StageGraph raises, naming the stage, and does not run it eagerly; the
+    card stays usable and a capturable function captures after it."""
+    calls = [0]
+
+    def bad(x):
+        calls[0] += 1
+        return x * float(x.sum().item())
+
+    x = torch.ones(4, device=cuda)
+    with pytest.raises(RuntimeError, match="probe: CUDA graph capture "
+                                           "failed"):
+        StageGraph("probe", bad, (x,))
+    assert calls[0] == 2                  # the warm-up and the capture
+    torch.cuda.synchronize()
+    good = StageGraph("good", lambda y: y * 2, (x,))
+    assert torch.equal(good(torch.full((4,), 3.0)).cpu(),
+                       torch.full((4,), 6.0))

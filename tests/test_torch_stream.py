@@ -12,7 +12,11 @@ and the 192x144 subsampled preset (stage B on the 72x96 lattice).
   (d) stream and stream_batched (5 frames at batch 2, so the last batch is
       padded; threads and the spawn pool; every fetch mode) yield the JAX
       engine's dmap and points; the pool falls back to threads only when
-      its processes cannot start;
+      its processes cannot start; stream_batched(fused=True), the
+      one-dispatch mode, yields the JAX engine's stream_batched(fused=True)
+      and the port's process_frame, in every fetch mode with either host
+      workers, re-emits the workers' warnings, and runs again after a call
+      left early;
   (e) close() and the context manager release the worker threads and the
       pool; the launch counters, the pool and the prior table hold under
       many threads.
@@ -468,6 +472,74 @@ def test_launch_counters_and_shared_state_under_threads():
     assert all(t is priors[0] for t in priors)
     eng.close()
     assert eng._host_pool is None
+
+
+@pytest.fixture(scope="module", params=sorted(MODES))
+def fused(request):
+    """JAX's stream_batched(fused=True) (batch 2) over the 5 frames, the
+    port's process_frame of each, and a port engine (closed at the end)."""
+    w, h, make = MODES[request.param]
+    jp = make()
+    frames = _frames(w, h, FRAMES)
+    with JaxStereo(CALIB, w, h, params=jp, use_pallas=False) as je:
+        ref = list(je.stream_batched(iter(frames), batch=2, fetch="host",
+                                     host_workers="thread", fused=True))
+    eng = StereoEngine(CALIB, w, h, params=_port(jp), device="cpu")
+    single = [{"dmap": o["dmap"], "points": o["points"]}
+              for o in (eng.process_frame(lf, rf) for lf, rf in frames)]
+    yield dict(frames=frames, ref=ref, single=single, eng=eng)
+    eng.close()
+
+
+@pytest.mark.parametrize("host_workers", ["thread", "process"])
+@pytest.mark.parametrize("fetch", ["host", "dmap", "device"])
+def test_stream_batched_fused_matches_jax(fused, fetch, host_workers):
+    eng = fused["eng"]
+    outs = list(eng.stream_batched(iter(fused["frames"]), batch=2,
+                                   fetch=fetch, pipeline_depth=2,
+                                   host_workers=host_workers, fused=True))
+    assert eng.host_mode == host_workers
+    _same_frames(outs, fused["ref"])
+    _same_frames(outs, fused["single"])
+    kinds = {"host": (np.ndarray, np.ndarray),
+             "dmap": (np.ndarray, torch.Tensor),
+             "device": (torch.Tensor, torch.Tensor)}[fetch]
+    assert isinstance(outs[-1]["dmap"], kinds[0])
+    assert isinstance(outs[-1]["points"], kinds[1])
+    assert outs[-1]["timings"]["t_t"] > 0
+    assert len(eng._fused[2]) >= 2           # a graph pair a tail
+
+
+def test_stream_batched_fused_runs_again_after_a_call_left_early(fused):
+    """A fused call closed after its first frame hands its graph pairs
+    back: the next call gets every frame."""
+    eng = fused["eng"]
+    gen = eng.stream_batched(iter(fused["frames"]), batch=2, fetch="host",
+                             pipeline_depth=3, host_workers="thread",
+                             fused=True)
+    next(gen)
+    gen.close()
+    outs = list(eng.stream_batched(iter(fused["frames"]), batch=2,
+                                   fetch="host", pipeline_depth=3,
+                                   host_workers="thread", fused=True))
+    _same_frames(outs, fused["single"])
+
+
+def test_stream_batched_fused_reemits_worker_warnings():
+    """The fused mode's host middle is the same helper: a warning captured
+    in a host worker reaches the caller, prefixed as in the JAX
+    package."""
+    jp = j_robotics_params(disp_max=63)
+    eng = StereoEngine(CALIB, 160, 120, params=_port(jp), device="cpu")
+    eng.elas.n_max = 8           # a tiny point cap: support is thinned
+    eng.elas.t_max = 2 * 8 + 8
+    with pytest.warns(UserWarning, match="host geometry worker: support "
+                      "points thinned"):
+        outs = list(eng.stream_batched(iter(_frames(160, 120, 3)), batch=2,
+                                       fetch="host", host_workers="thread",
+                                       fused=True))
+    assert len(outs) == 3
+    eng.close()
 
 
 # ---- (e) lifecycle -------------------------------------------------------------
