@@ -130,8 +130,27 @@ then:
      frame equal to phase 5's process_frame bit for bit, launch counts
      one a batch, whole-run frames/s of both, two batches of each under
      torch.profiler.  A capture that fails fails the run;
+  12. the degenerate frames of the robustness tests
+     (synthetic.degenerate_frames): a flat 96x64 pair under the robotics
+     preset (no support point, no triangle) and under app_params(), full
+     and subsampled (only the corner points), an unrelated 96x64 pair,
+     and a 32x24 frame (narrower than a block of K1 or K2) under the
+     robotics preset and under app_params() (D = 256 above the width);
+     each, with its pair swapped beside it, through ElasEngine.process,
+     process_jit (graphs captured at that size), the batched stages at
+     batch 2 and ShardedStereoPipeline on a (1, 2) mesh of cuda:0 (the
+     stripe launches and K3 banded), and for two cases on a (1, 5) mesh
+     too (every frame's rows padded): every D1 and D2 equal to the
+     port's on the CPU bit for bit, the launch counts of each path
+     asserted, one line a case with each path's host ms and its set-up's
+     (the CPU reference, process_jit's graphs, each pipeline's pool
+     start, warm-up and close).  Then one support grid of
+     phase 5 through the host library and its NumPy fallbacks: the
+     sequential filters equal, and host ms of both; the rasterizers' host
+     ms, and the triangle-id pixels, span-code bytes and D1 pixels in
+     which their results differ (a reading);
 and last:
-  12. one JSON line per kernel result, one `{"kernels": [...]}` line with
+  13. one JSON line per kernel result, one `{"kernels": [...]}` line with
      a row per kernel and mode, single-frame, batched and striped (each
      row names the design that replaced the kernel's first one, and the
      path that replays that mode inside a CUDA graph with its launches
@@ -156,7 +175,11 @@ import time
 import zlib
 
 import numpy as np
-import torch
+
+if __name__ != "__mp_main__":
+    # the host pools' spawned workers import this script as __mp_main__
+    # and run no torch: importing it there took ~6 s of each pool's start
+    import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 W, H = 1242, 375
@@ -1712,6 +1735,220 @@ def drive_one_dispatch(scenes, outs_by_mode, calib, card) -> dict:
     return launches
 
 
+# phase 12's sharded meshes (stream 1 x tile t on cuda:0): every case on
+# tile 2, stripes of 12-32 rows, none padded; on tile 5 (stripes of 5-13
+# rows, every frame padded) the two cases whose padding differs: 64 rows
+# over a 32-row half lattice (3 output rows padded, K2's last stripe
+# empty) and the 32x24 frame under D = 256 (5-row stripes)
+PADDED_CASES = ("flat_app_subsampled", "tiny_app")
+
+
+def since(t: float) -> float:
+    """Host milliseconds since perf_counter() gave t."""
+    return 1e3 * (time.perf_counter() - t)
+
+
+def check_degenerate(name, p, L, R, card) -> None:
+    """Phase 12 for one frame of synthetic.degenerate_frames: the pair and
+    the pair swapped, each path's D1 and D2 equal to the port's on the CPU
+    bit for bit, the launch counts (zeroed just before each path, read
+    just after) those of the path; prints one line with the host ms of
+    each path to a synchronise and of its set-up (the CPU reference, the
+    engines, process_jit's graphs, each pipeline's pool start, warm-up
+    and close)."""
+    from stereovision_tpu_torch.models.elas import ElasEngine
+    from stereovision_tpu_torch.ops.cuda import ccl_cu
+    from stereovision_tpu_torch.ops.support import candidate_count
+    from stereovision_tpu_torch.parallel import ctx
+    from stereovision_tpu_torch.parallel.mesh import make_mesh
+    from stereovision_tpu_torch.parallel.shard import ShardedStereoPipeline
+    from stereovision_tpu_torch.transfer import upload
+    h, w = L.shape
+    frames = [(L, R), (R, L)]
+    t = time.perf_counter()
+    cpu = ElasEngine(p, w, h, device="cpu")
+    refs = [cpu.process(*f) for f in frames]
+    g = cpu.host_mid(cpu.stage_support(L, R)[2].numpy())
+    n_k3 = 1 if p.postprocess_only_left else 2
+    host_ms, launches = {}, {}
+    setup_ms = {"cpu_reference": since(t)}
+
+    def run(path, fn):
+        torch.cuda.synchronize()
+        zero_counts()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        host_ms[path] = since(t)
+        launches[path] = read_counts()
+        return out
+
+    def same(got, i, path):
+        for k in range(2):
+            assert torch.equal(got[k].cpu(), refs[i][k]), (
+                "%s: %s D%d of frame %d differs from the CPU's"
+                % (name, path, k + 1, i))
+
+    t = time.perf_counter()
+    with ElasEngine(p, w, h) as eng:
+        setup_ms["engine"] = since(t)
+        same(run("process", lambda: eng.process(L, R)), 0, "process")
+        t = time.perf_counter()
+        eng.process_jit(L, R)
+        torch.cuda.synchronize()
+        setup_ms["process_jit_graphs"] = since(t)
+        assert all(x.graph is not None for x in eng.process_jit.graphs)
+        for i, got in enumerate(run("process_jit", lambda: [
+                eng.process_jit(*f) for f in frames])):
+            same(got, i, "process_jit")
+
+        def batched():
+            desc1, desc2, d_can = eng.stage_support_batched(
+                np.stack([np.stack(f) for f in frames]))
+            buf = np.stack([eng.pack_geometry(eng.host_mid(x))
+                            for x in d_can.cpu().numpy()])
+            return eng.stage_dense_batched(desc1, desc2,
+                                           upload(buf, eng.device))
+
+        D1, D2 = run("batched", batched)
+        for i in range(2):
+            same((D1[i], D2[i]), i, "batched")
+        t = time.perf_counter()
+    setup_ms["engine_close"] = since(t)
+    expect = {"process": per_frame_counts(p, 1),
+              "process_jit": per_frame_counts(p, 2),
+              "batched": per_frame_counts(p, 1)}
+    lr = (np.stack([L, R]), np.stack([R, L]))
+    merges, pads = {}, {}
+    for tile in (2, 5) if name in PADDED_CASES else (2,):
+        path = "sharded_1x%d" % tile
+        mesh = make_mesh(devices=[torch.device("cuda", 0)] * tile, stream=1,
+                         tile=tile)
+        t = time.perf_counter()
+        with ShardedStereoPipeline(p, w, h, mesh) as pipe:
+            setup_ms[path + "_pipeline"] = since(t)
+            # the two spawned workers that the batch of 2 maps onto
+            t = time.perf_counter()
+            list(pipe.engine.host_pool().map(abs, range(2)))
+            setup_ms[path + "_pool_start"] = since(t)
+            t = time.perf_counter()
+            pipe.run(*lr)
+            torch.cuda.synchronize()
+            setup_ms[path + "_warmup"] = since(t)
+            D1, D2 = run(path, lambda: pipe.run(*lr))
+            merges[path] = ccl_cu.merges
+            pads[path] = [pipe.pad_in, pipe.pad_out]
+            Ho = pipe.Ho
+            assert bool((D1[:, Ho:] == -10).all()), (name, path)
+            for i in range(2):
+                same((D1[i, :Ho], D2[i, :Ho]), i, path)
+            with ctx.kernel_mesh(mesh.group(0)):
+                k2 = ctx.row_ranges(candidate_count(p, h))
+            t = time.perf_counter()
+        setup_ms[path + "_close"] = since(t)
+        # one launch a stripe (K1 two passes; K3 on D2 too unless
+        # postprocess_only_left), one K3 merge a map; K2 skips a stripe
+        # that holds no candidate row
+        expect[path] = {"matching": 2 * tile,
+                        "support": sum(a < b for a, b in k2),
+                        "lr_check": tile, "speckle_ccl": tile * n_k3}
+    print(json.dumps({"degenerate": {
+        "case": name, "width": w, "height": h, "disp_max": p.disp_max,
+        "subsampling": p.subsampling,
+        "support_points": int((g["pts"][:, 0] >= 0).sum()),
+        "triangles": [int((g["tris_" + t][:, 0] >= 0).sum())
+                      for t in ("l", "r")],
+        "d1_valid_share": float((refs[0][0] >= 0).float().mean()),
+        "host_ms": host_ms, "setup_ms": setup_ms,
+        "launches": launches, "speckle_ccl_merges": merges,
+        "pad_in_out": pads,
+        "equal_to_cpu": "D1 and D2 of both frames bit for bit, every path",
+        "card": card}}), flush=True)
+    for path in expect:
+        assert launches[path] == expect[path], (name, path, launches[path])
+    for path in merges:
+        assert merges[path] == n_k3, (name, path, merges[path])
+
+
+@contextlib.contextmanager
+def without_host_lib():
+    """hostlib.raster as on a host where the native library cannot be
+    built: get_lib() gives None, so the host middle runs on NumPy."""
+    from stereovision_tpu_torch.hostlib import raster
+    real = raster.get_lib
+    raster.get_lib = lambda: None
+    try:
+        yield
+    finally:
+        raster.get_lib = real
+
+
+def compare_host_fallbacks(scenes, card) -> None:
+    """Phase 12's host library against its NumPy fallbacks on one KITTI
+    support grid of phase 5 (app_params()): the sequential filters (equal
+    required) and the rasterizer (a reading: the native one may contract
+    a * u + b into a fused multiply-add, NumPy rounds twice), host ms of
+    each, the triangle-id pixels, span-code bytes and D1 pixels in which
+    the two rasterizers' results differ."""
+    from stereovision_tpu_torch.engine import bgr_to_gray
+    from stereovision_tpu_torch.hostlib import geometry, raster
+    from stereovision_tpu_torch.models.elas import ElasEngine
+    from stereovision_tpu_torch.params import app_params
+    p = app_params()
+    I1, I2 = (bgr_to_gray(x) for x in scenes[1][:2])
+    eng = ElasEngine(p, W, H)
+    dc = eng.stage_support(I1, I2)[2].cpu().numpy()
+    ms = {}
+
+    def timed(key, fn):
+        t = time.perf_counter()
+        out = fn()
+        ms[key] = since(t)
+        return out
+
+    native_f = timed("filters_native",
+                     lambda: raster.filter_support_sequential(dc, p))
+    numpy_f = timed("filters_numpy", lambda: raster._filter_support_np(
+        np.array(dc, np.int16), p))
+    assert np.array_equal(native_f, numpy_f), "the NumPy filters differ"
+    g = geometry.host_geometry(native_f, p, W, H, raster.rasterize,
+                               n_cap=eng.n_max)
+    pixels = {}
+    for right, tag in ((False, "l"), (True, "r")):
+        args = (g["pts"], g["tris_" + tag], right, W, H)
+        a = timed("rasterize_native_" + tag, lambda: raster.rasterize(*args))
+        b = timed("rasterize_numpy_" + tag,
+                  lambda: raster.rasterize_tri_ids(*args))
+        pixels[tag] = int((a != b).sum())
+    native_g, native_d1 = eng.host_mid(dc), eng.process(I1, I2)[0]
+    with without_host_lib():
+        numpy_g, numpy_d1 = eng.host_mid(dc), eng.process(I1, I2)[0]
+    span = {k: int((native_g[k] != numpy_g[k]).sum())
+            for k in ("tri_l", "tri_r")}
+    d1 = int((native_d1 != numpy_d1).sum())
+    print(json.dumps({"host_fallbacks": {
+        "grid": list(dc.shape), "support_points": int(len(g["pts"])),
+        "triangles": [int(len(g["tris_l"])), int(len(g["tris_r"]))],
+        "filters_equal": True, "host_ms": ms,
+        "tri_id_pixels_differ": pixels, "span_bytes_differ": span,
+        "d1_pixels_differ": d1, "card": card}}), flush=True)
+
+
+def drive_degenerate(scenes, card) -> None:
+    """Phase 12: the degenerate frames on the card through K1-K4, eager,
+    batched, striped and graph-replayed; the host library's fallbacks."""
+    from stereovision_tpu_torch.synthetic import degenerate_frames
+    t = time.perf_counter()
+    for name, (p, L, R) in degenerate_frames().items():
+        check_degenerate(name, p, L, R, card)
+    t1 = time.perf_counter()
+    compare_host_fallbacks(scenes, card)
+    print(json.dumps({"phase_12_s": time.perf_counter() - t,
+                      "degenerate_s": t1 - t,
+                      "host_fallbacks_s": time.perf_counter() - t1,
+                      "card": card}), flush=True)
+
+
 def kernel_rows(results, launches, suffix, striped=False) -> list:
     """The `kernels` line's rows of one mode; the matching row averages
     the left and right passes.  striped: phase 9's sharded modes (K1, K2,
@@ -1830,7 +2067,10 @@ def main() -> int:
                                  graph_launches[mode][name]}
                                 if variant in GRAPH_PATHS else {})
 
-    # 12. summary lines
+    # 12. the degenerate frames, the host library's fallbacks
+    drive_degenerate(scenes, card)
+
+    # 13. summary lines
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

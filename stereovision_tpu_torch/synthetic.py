@@ -1,5 +1,6 @@
-"""Seeded synthetic stereo scenes with a known disparity, and seeded
-synthetic darknet weights (the repository holds no YOLO weights file).
+"""Seeded synthetic stereo scenes with a known disparity, the degenerate
+frames of the robustness checks, and seeded synthetic darknet weights (the
+repository holds no YOLO weights file).
 
 A textured left image, a ground-like slanted disparity field below the
 horizon, a fronto-parallel background above it and two fronto-parallel
@@ -11,7 +12,11 @@ texture where nothing lands.  The disparities scale with the width
 
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
 import numpy as np
+
+from .params import ElasParams, app_params, robotics_params
 
 
 def disparity_field(width: int, height: int) -> np.ndarray:
@@ -49,6 +54,38 @@ def stereo_pair(width: int, height: int, seed: int):
         right[vs[ok], x[ok]] = left[vs[ok], us[ok]]
     bgr = lambda g: np.repeat(g[..., None], 3, axis=-1)  # noqa: E731
     return bgr(left), bgr(right), disp
+
+
+def degenerate_frames() -> Dict[str, Tuple[ElasParams, np.ndarray,
+                                           np.ndarray]]:
+    """The degenerate frames of the JAX package's tests/test_robustness.py,
+    at its sizes and seeds: name -> (parameters, left, right), (H, W)
+    uint8 gray images.
+
+      flat_*     a flat 96x64 pair (all 100): no support point; under the
+                 robotics preset no triangle, under app_params() only its
+                 6 corner points (planes at disparity 0);
+      unrelated  a 96x64 pair of unrelated noise (default_rng(0));
+      tiny_*     a 32x24 frame (default_rng(1)) and itself moved 3 columns
+                 left, narrower than one block of K1 (128 columns) or of
+                 K2 (256); under app_params() D = 256 is above the width.
+    """
+    flat = np.full((64, 96), 100, np.uint8)
+    rng = np.random.default_rng(0)
+    left = rng.integers(0, 255, (64, 96), dtype=np.uint8)
+    right = rng.integers(0, 255, (64, 96), dtype=np.uint8)
+    tiny = np.random.default_rng(1).integers(0, 255, (24, 32),
+                                             dtype=np.uint8)
+    both = robotics_params(disp_max=31, postprocess_only_left=False)
+    return {
+        "flat_robotics": (both, flat, flat),
+        "flat_app": (app_params(), flat, flat),
+        "flat_app_subsampled": (app_params(subsampling=True), flat, flat),
+        "unrelated": (both, left, right),
+        "tiny_robotics": (robotics_params(disp_max=15), tiny,
+                          np.roll(tiny, -3, axis=1)),
+        "tiny_app": (app_params(), tiny, np.roll(tiny, -3, axis=1)),
+    }
 
 
 # added to the objectness bias of every yolo head of darknet_weights: as
