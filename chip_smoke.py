@@ -149,8 +149,27 @@ then:
      sequential filters equal, and host ms of both; the rasterizers' host
      ms, and the triangle-id pixels, span-code bytes and D1 pixels in
      which their results differ (a reading);
+  13. the reference's scale grid (stereovision_tpu_torch/scales.py: scale
+     0.5, 0.6, ..., 3.0, each at full resolution and subsampled; 52 frame
+     sizes from 2484x750 down to 414x125): for each pair, StereoEngine at
+     int(1242 / s) x int(375 / s) with the intrinsics divided by s, on two
+     of phase 3's pairs resized as io/kitti.py resizes them; eager
+     process_frame after a warm-up, ElasEngine.process_jit (graphs made
+     at that size) and stream_batched (pipeline_depth=3, fetch "host") at
+     the sweep's batch, 2 batches after one of warm-up, the host middle in
+     the spawn pool for the scales of SCALE_POOL and on threads for the
+     rest; every process_jit D1 and D2 equal to eager process's and every
+     streamed frame's dmap and points to its process_frame's, bit for
+     bit; frame 0 equal to the port on the CPU for the pairs of SCALE_CPU
+     (computed in one spawned worker while the card works through the
+     grid, compared at the end; the CPU's seconds printed); launch counts of each path asserted; one
+     `{"scale": ...}` line a pair (ms a frame of both single-frame paths,
+     whole-run frames/s, launches, set-up ms).  Then cli.main with -f 0.5
+     and with -f 3 -s 1 on 4 of phase 5's frames as 1242x375 PNGs, every
+     dumped frame equal to process_frame at that size, and the C ABI's
+     generatePointCloud at scale 2, its cloud equal to process_frame's;
 and last:
-  13. one JSON line per kernel result, one `{"kernels": [...]}` line with
+  14. one JSON line per kernel result, one `{"kernels": [...]}` line with
      a row per kernel and mode, single-frame, batched and striped (each
      row names the design that replaced the kernel's first one, and the
      path that replays that mode inside a CUDA graph with its launches
@@ -1080,12 +1099,9 @@ def drive_detection(scenes, outs, calib, card) -> None:
           flush=True)
 
 
-def drive_capi(frames, outs, p, tmp, card) -> dict:
-    """The C ABI: loaded with ctypes into this process (the join path), 4
-    frames from alternating new buffers, each cloud equal to phase 5's
-    process_frame as float64 and getColor equal to the frame's left BGRA;
-    then csrc/capi_example.c, built with gcc -ldl, in a subprocess on the
-    card."""
+def capi_lib():
+    """The C ABI's library, built and loaded with ctypes into this process
+    (the join path), its functions declared."""
     import ctypes
     from stereovision_tpu_torch import capi
     lib = ctypes.CDLL(capi.library_path(), mode=ctypes.RTLD_GLOBAL)
@@ -1098,6 +1114,18 @@ def drive_capi(frames, outs, p, tmp, card) -> dict:
     lib.getColor.argtypes = []
     lib.clean.restype = None
     lib.clean.argtypes = []
+    return lib
+
+
+def drive_capi(frames, outs, p, tmp, card) -> dict:
+    """The C ABI: loaded with ctypes into this process (the join path), 4
+    frames from alternating new buffers, each cloud equal to phase 5's
+    process_frame as float64 and getColor equal to the frame's left BGRA;
+    then csrc/capi_example.c, built with gcc -ldl, in a subprocess on the
+    card."""
+    import ctypes
+    from stereovision_tpu_torch import capi
+    lib = capi_lib()
     torch.cuda.synchronize()
     zero_counts()
     frame_ms = []
@@ -1949,6 +1977,301 @@ def drive_degenerate(scenes, card) -> None:
                       "card": card}), flush=True)
 
 
+# phase 13: the scales of the reference's grid whose stream_batched runs
+# the host middle in the spawn pool (a pool's start costs ~2 s); the rest
+# run it on threads.  0.5 and 0.6 are the largest frames, 0.5 and 2.1 the
+# TPU's fault shapes (docs/KNOWN_ISSUES.md), 1.3 an odd width, 3.0 the
+# smallest frame.
+SCALE_POOL = (0.5, 0.6, 1.3, 2.1, 3.0)
+# ... those held against the port on the CPU: the largest frames and the
+# TPU's fault shapes, which the CPU tests cannot afford or do not run.  One
+# spawned worker computes them, largest first, while the card works through
+# the grid (serially they took ~35 s of the phase)
+SCALE_CPU = ((0.5, False), (0.5, True), (2.1, True), (3.0, False))
+SCALE_CPU_THREADS = 4        # ... its intra-op threads, of the 8 cores
+SCALE_BATCHES = 2            # stream_batched: timed batches after a warm-up
+SCALE_CLI = ((0.5, False), (3.0, True))   # cli.main's -f (and -s 1)
+SCALE_CLI_FRAMES = 4
+SCALE_CAPI = 2               # the C ABI's scale (an int there)
+
+
+def check_scale(scale, sub, pairs, calib, card):
+    """Phase 13 for one (scale, subsampling): StereoEngine at the scale's
+    frame size with the intrinsics divided by the scale; the pairs (1242x375)
+    resized as io/kitti.py resizes them; eager process_frame after a
+    warm-up, ElasEngine.process_jit (graphs made at that size), and
+    stream_batched at the sweep's batch (SCALE_BATCHES batches after one
+    of warm-up), each with the launch counts zeroed just before and read
+    just after; every process_jit D1 and D2 equal to eager process's, and
+    every streamed frame's dmap and points to its process_frame's, bit for
+    bit.  Prints one line; returns frame 0's process_frame output, its
+    disparity on the host."""
+    from stereovision_tpu_torch import scales
+    from stereovision_tpu_torch.engine import StereoEngine, bgr_to_gray
+    from stereovision_tpu_torch.io.kitti import _resize
+    from stereovision_tpu_torch.params import app_params
+    w, h = scales.frame_size(scale)
+    B = scales.sweep_batch(w, h, sub)
+    p = app_params(subsampling=sub)
+    workers = "process" if scale in SCALE_POOL else "thread"
+    frames = [tuple(_resize(f, w, h) for f in pair) for pair in pairs]
+    n = len(frames)
+    line = {"scale": scale, "subsampling": sub, "size": "%dx%d" % (w, h),
+            "out_shape": list(p.out_shape(w, h)), "batch": B,
+            "host_workers": workers}
+    launches, expect = {}, {}
+
+    def counted(path, fn, count):
+        torch.cuda.synchronize()
+        zero_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[path] = read_counts()
+        expect[path] = per_frame_counts(p, count)
+        return out
+
+    t = time.perf_counter()
+    with StereoEngine(calib, w, h, scale=scale, params=p) as eng:
+        line["setup_ms"] = {"engine": since(t)}
+        elas = eng.elas
+        eng.process_frame(*frames[0])
+        frame_ms = []
+
+        def eager():
+            outs = []
+            for f in frames:
+                t = time.perf_counter()
+                outs.append(eng.process_frame(*f))
+                frame_ms.append(since(t))
+            return outs
+
+        outs = counted("process_frame", eager, n)
+        for out in outs:
+            assert out["dmap"].shape == tuple(line["out_shape"])
+            assert out["points"].shape == (w * h, 3)
+        pts = outs[0]["points"].reshape(h, w, 3)
+        step = 2 if sub else 1
+        Ho, Wo = line["out_shape"]
+        assert np.isfinite(pts[::step, ::step][:Ho, :Wo][
+            outs[0]["dmap"] > 0]).all()
+
+        grays = [(bgr_to_gray(a), bgr_to_gray(b)) for a, b in frames]
+        t = time.perf_counter()
+        elas.process_jit(*grays[0])
+        torch.cuda.synchronize()
+        line["setup_ms"]["process_jit_graphs"] = since(t)
+        assert all(g.graph is not None for g in elas.process_jit.graphs)
+        jit_ms = []
+
+        def replays():
+            got = []
+            for g in grays:
+                t = time.perf_counter()
+                got.append(elas.process_jit(*g))
+                torch.cuda.synchronize()
+                jit_ms.append(since(t))
+            return got
+
+        for i, (g, (D1, D2)) in enumerate(zip(
+                grays, counted("process_jit", replays, n))):
+            E1, E2 = elas.process(*g)
+            assert torch.equal(D1, E1) and torch.equal(D2, E2), (
+                scale, sub, "process_jit", i)
+            assert torch.equal(D1, outs[i]["disparity"]), (scale, sub, i)
+
+        run = dict(batch=B, fetch="host", pipeline_depth=3,
+                   host_workers=workers)
+
+        def seq(k):
+            return (frames[i % n] for i in range(k))
+
+        t = time.perf_counter()
+        assert len(list(eng.stream_batched(seq(B), **run))) == B
+        line["setup_ms"]["stream_batched_warmup"] = since(t)
+        t = time.perf_counter()
+        got = counted("stream_batched", lambda: list(eng.stream_batched(
+            seq(SCALE_BATCHES * B), **run)), SCALE_BATCHES)
+        wall = time.perf_counter() - t
+        assert eng.host_mode == workers, eng.host_mode
+        assert (elas._host_pool is not None) == (workers == "process")
+        assert len(got) == SCALE_BATCHES * B
+        for i, out in enumerate(got):
+            ref = outs[i % n]
+            assert np.array_equal(out["dmap"], ref["dmap"]), (scale, sub, i)
+            assert np.array_equal(out["points"], ref["points"]), (
+                scale, sub, i)
+        line["memory_reserved_bytes"] = torch.cuda.memory_reserved()
+        t = time.perf_counter()
+    line["setup_ms"]["engine_close"] = since(t)
+    # the next size's blocks differ: give this one's back to the card
+    torch.cuda.empty_cache()
+    line.update(
+        process_frame_ms=frame_ms,
+        process_frame_ms_median=float(np.median(frame_ms)),
+        process_jit_ms=jit_ms,
+        process_jit_ms_median=float(np.median(jit_ms)),
+        stream_batched_frames_per_s=SCALE_BATCHES * B / wall,
+        stream_batched_s=wall,
+        d1_valid_share=float((outs[0]["disparity"] >= 0).float().mean()),
+        launches=launches,
+        equal_to_eager=("process_jit: D1 and D2 of every frame; "
+                        "stream_batched: dmap and points of every frame"),
+        card=card)
+    print(json.dumps({"scale": line}), flush=True)
+    for path in expect:
+        assert launches[path] == expect[path], (scale, sub, path,
+                                                launches[path])
+    return dict(outs[0], disparity=outs[0]["disparity"].cpu())
+
+
+def cpu_scale_reference(calib, scale, sub, pair) -> dict:
+    """Phase 13's CPU reference, in a spawned worker while the card works
+    through the grid: process_frame of the pair (1242x375) resized to the
+    scale's size, on the port with device="cpu", and its seconds."""
+    import torch
+    from stereovision_tpu_torch import scales
+    from stereovision_tpu_torch.engine import StereoEngine
+    from stereovision_tpu_torch.io.kitti import _resize
+    from stereovision_tpu_torch.params import app_params
+    torch.set_num_threads(SCALE_CPU_THREADS)
+    w, h = scales.frame_size(scale)
+    t = time.perf_counter()
+    with StereoEngine(calib, w, h, scale=scale,
+                      params=app_params(subsampling=sub), device="cpu") as eng:
+        ref = eng.process_frame(*(_resize(f, w, h) for f in pair))
+    return {"disparity": ref["disparity"].numpy(), "dmap": ref["dmap"],
+            "points": ref["points"], "s": time.perf_counter() - t}
+
+
+def check_scale_cli(scenes, calib, card) -> dict:
+    """Phase 13's command line: cli.main with -f (and -s 1) on
+    SCALE_CLI_FRAMES of phase 5's frames written as 1242x375 PNGs, every
+    dumped frame's dmap and points equal to process_frame of the frame as
+    the CLI reads it, at the scale's size; launches asserted."""
+    from stereovision_tpu_torch import scales
+    from stereovision_tpu_torch.engine import StereoEngine
+    from stereovision_tpu_torch.io.kitti import KittiRawSequence
+    from stereovision_tpu_torch.params import app_params
+    n = SCALE_CLI_FRAMES
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        kitti = write_kitti(os.path.join(tmp, "kitti"),
+                            [(lf, rf) for lf, rf, _ in scenes[1:n + 1]])
+        for scale, sub in SCALE_CLI:
+            w, h = scales.frame_size(scale)
+            p = app_params(subsampling=sub)
+            out_dir = os.path.join(tmp, "f%s_s%d" % (scale, sub))
+            argv = ["-k", kitti, "-f", str(scale), "-s", str(int(sub)),
+                    "--dump", "npz", "--out_dir", out_dir]
+            rc, lines, wall, launches = run_cli(argv)
+            assert rc == 0, (scale, sub, rc)
+            avg = check_frame_lines(lines, n, p.out_shape(w, h))
+            assert launches == per_frame_counts(p, n), launches
+            seq = KittiRawSequence(kitti, width=w, height=h)
+            with StereoEngine(calib, w, h, scale=scale, params=p) as eng:
+                for i in range(n):
+                    ref = eng.process_frame(*seq[i])
+                    got = np.load(os.path.join(out_dir,
+                                               "frame_%06d.npz" % i))
+                    assert np.array_equal(got["dmap"], ref["dmap"]), (
+                        scale, sub, i)
+                    assert np.array_equal(got["points"], ref["points"]), (
+                        scale, sub, i)
+            runs["-f %s -s %d" % (scale, sub)] = {
+                "size": "%dx%d" % (w, h), "frames": n, "AVG_FPS": avg,
+                "wall_s": wall, "launches": launches}
+    return runs
+
+
+def check_scale_capi(pair, ref_points) -> dict:
+    """Phase 13's C ABI: generatePointCloud at scale SCALE_CAPI (the frame
+    resized to that scale's size, BGRA), its cloud equal to process_frame's
+    (ref_points) as float64; launches asserted."""
+    import ctypes
+    from stereovision_tpu_torch import scales
+    from stereovision_tpu_torch.io.kitti import _resize
+    from stereovision_tpu_torch.params import app_params
+    w, h = scales.frame_size(SCALE_CAPI)
+    bgra = [np.ascontiguousarray(np.concatenate(
+        [_resize(f, w, h), np.full((h, w, 1), 255, np.uint8)], axis=-1))
+        for f in pair]
+    lib = capi_lib()
+    torch.cuda.synchronize()
+    zero_counts()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        addr = lib.generatePointCloud(
+            bgra[0].ctypes.data, bgra[1].ctypes.data, b"", w, h, True, False,
+            False, False, SCALE_CAPI, 1, b"", b"", b"", False, False)
+    ms = since(t)
+    assert addr, "generatePointCloud returned NULL at scale %d" % SCALE_CAPI
+    pts = np.array(np.ctypeslib.as_array((ctypes.c_double * (h * w * 3))
+                                         .from_address(addr)))
+    launches = read_counts()
+    lib.clean()
+    assert np.array_equal(pts.reshape(-1, 3),
+                          ref_points.astype(np.float64)), "C ABI cloud"
+    assert launches == per_frame_counts(app_params(), 1), launches
+    return {"scale": SCALE_CAPI, "size": "%dx%d" % (w, h), "frame_ms": ms,
+            "launches": launches,
+            "cloud": "equal to process_frame's as float64"}
+
+
+def drive_scales(scenes, calib, card) -> None:
+    """Phase 13: the reference's scale grid (52 pairs of scale and
+    subsampling) through process_frame, process_jit and stream_batched on
+    the card; the CLI's -f and the C ABI's scale."""
+    import concurrent.futures
+    import multiprocessing
+    from stereovision_tpu_torch import scales
+    t = time.perf_counter()
+    pairs = [(lf, rf) for lf, rf, _ in scenes[1:3]]
+    capi_ref, card_outs = None, {}
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as cpu:
+        try:
+            refs = {key: cpu.submit(cpu_scale_reference, calib, *key,
+                                    pairs[0]) for key in SCALE_CPU}
+            for scale in scales.SCALES:
+                for sub in (False, True):
+                    out = check_scale(scale, sub, pairs, calib, card)
+                    if (scale, sub) in SCALE_CPU:
+                        card_outs[scale, sub] = out
+                    if (scale, sub) == (float(SCALE_CAPI), False):
+                        capi_ref = out["points"]
+            t1 = time.perf_counter()
+            cli_runs = check_scale_cli(scenes, calib, card)
+            capi_run = check_scale_capi(pairs[0], capi_ref)
+            t2 = time.perf_counter()
+            cpu_lines = []
+            for (scale, sub), fut in refs.items():
+                ref, out = fut.result(), card_outs[scale, sub]
+                assert np.array_equal(out["disparity"].numpy(),
+                                      ref["disparity"]), (
+                    scale, sub, "D1 differs from the CPU's")
+                assert np.array_equal(out["dmap"], ref["dmap"]), (scale, sub)
+                assert np.array_equal(out["points"], ref["points"]), (
+                    scale, sub)
+                cpu_lines.append({
+                    "scale": scale, "subsampling": sub,
+                    "cpu_reference_s": ref["s"],
+                    "equal_to_cpu": "frame 0: D1, dmap and points bit for "
+                                    "bit"})
+        finally:
+            cpu.shutdown(cancel_futures=True)
+    print(json.dumps({"scales_cpu": cpu_lines, "cpu_threads":
+                      SCALE_CPU_THREADS, "wait_after_card_s":
+                      time.perf_counter() - t2}), flush=True)
+    print(json.dumps({"scales_cli_capi": {"cli": cli_runs, "capi": capi_run,
+                                          "card": card}}), flush=True)
+    print(json.dumps({"phase_13_s": time.perf_counter() - t,
+                      "grid_s": t1 - t, "cli_capi_s": t2 - t1,
+                      "process_pool_scales": list(SCALE_POOL),
+                      "thread_scales": "the rest",
+                      "memory_reserved_bytes": torch.cuda.memory_reserved(),
+                      "card": card}), flush=True)
+
+
 def kernel_rows(results, launches, suffix, striped=False) -> list:
     """The `kernels` line's rows of one mode; the matching row averages
     the left and right passes.  striped: phase 9's sharded modes (K1, K2,
@@ -2070,7 +2393,10 @@ def main() -> int:
     # 12. the degenerate frames, the host library's fallbacks
     drive_degenerate(scenes, card)
 
-    # 13. summary lines
+    # 13. the reference's scale grid
+    drive_scales(scenes, calib, card)
+
+    # 14. summary lines
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -122,14 +122,17 @@ def component_labels(D: torch.Tensor, p: ElasParams) -> torch.Tensor:
     to the fixpoint."""
     H, W = D.shape
     n = H * W
-    if n * (max(H, W) + 1) >= 2 ** 31:
-        raise ValueError("frame too large for the re-keyed min-scan")
+    # the re-keyed labels (label - (n + 1) * segment) fit int32 up to
+    # n * (max(H, W) + 1) < 2**31 (2070x625 exceeds it); past it they are
+    # int64, where the JAX XLA path scans without re-keying
+    # (stereovision_tpu/ops/postprocess.py:78-96, :138): the same fixpoint
+    # either way
+    key = torch.int32 if n * (max(H, W) + 1) < 2 ** 31 else torch.int64
     stride = n + 1
 
     def seg_offset(connp, dim, reverse):
         c = torch.flip(connp, (dim,)) if reverse else connp
-        return torch.cumsum((~c).to(torch.int32), dim=dim,
-                            dtype=torch.int32) * stride
+        return torch.cumsum((~c).to(key), dim=dim, dtype=key) * stride
 
     scans = [(seg_offset(connectivity(D, p, dy, dx), dim, rev), dim, rev)
              for dy, dx, dim, rev in ((0, -1, 1, False), (0, 1, 1, True),
@@ -140,13 +143,13 @@ def component_labels(D: torch.Tensor, p: ElasParams) -> torch.Tensor:
         out = torch.cummin(x - off, dim=dim).values + off
         return torch.flip(out, (dim,)) if reverse else out
 
-    lab = torch.arange(n, dtype=torch.int32, device=D.device).reshape(H, W)
+    lab = torch.arange(n, dtype=key, device=D.device).reshape(H, W)
     while True:
         m = lab
         for off, dim, rev in scans:
             m = scan_dir(m, off, dim, rev)
         if torch.equal(m, lab):
-            return lab
+            return lab.to(torch.int32)
         lab = m
 
 

@@ -4,7 +4,9 @@ Same NumPy frames into both: ElasEngine.process (D1, D2) and
 StereoEngine.process_frame (dmap, points) must match bit for bit at
 160x120 (D = 64, two presets, each at full resolution and subsampled) and
 at the main path's full width, 1242x375 under app_params() and
-app_params(subsampling=True) (D = 256), with every option of the frame
+app_params(subsampling=True) (D = 256; ElasEngine.process there in
+tests/test_torch_kitti_full.py and tests/test_torch_kitti_subsampled.py,
+through elas_full_width_kitti below), with every option of the frame
 tail (remove_sky, true_scale_cloud, robot_frame, pc_extrapolation, and the
 resize of the half-lattice map to the cloud's size).  Plus: the port
 imports neither jax nor stereovision_tpu, its entry points default to the
@@ -43,6 +45,18 @@ PRESETS = {
     "app_sub": lambda: j_app_params(subsampling=True).replace(disp_max=63),
     "robotics_sub": lambda: j_robotics_params(disp_max=63, subsampling=True),
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread a torch call while this module runs (and the
+    modules that import this fixture): other test workers share the
+    machine's cores, and oversubscribed intra-op threads slowed the 1242x375
+    cases many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _port(jp):
@@ -143,10 +157,13 @@ def test_elas_process_matches_jax(preset):
     _check_sanity(D1, disp, 0.6)
 
 
-@pytest.mark.parametrize("subsampling", [False, True])
-def test_elas_process_full_width_kitti(subsampling):
+def elas_full_width_kitti(subsampling):
     """The main path's full width: 1242x375, app_params(), D = 256, at full
-    resolution and on the (187, 621) half lattice."""
+    resolution or on the (187, 621) half lattice.  Each mode is the test
+    test_elas_process_full_width_kitti of a file of its own
+    (tests/test_torch_kitti_full.py, tests/test_torch_kitti_subsampled.py),
+    so that the test runner's workers share the two (~4 min each on one
+    core)."""
     w, h = 1242, 375
     I1, I2, disp = _gray_pair(w, h, seed=0)
     ref = JaxElas(j_app_params(subsampling=subsampling), w, h).process(I1, I2)
