@@ -1,0 +1,214 @@
+"""The host middle of the pipeline, in NumPy and SciPy: support grid ->
+support points, Delaunay triangles, triangle-id maps and their span codes
+(counterparts of stereovision_tpu/ops/planes.py:34-122,
+stereovision_tpu/ops/spans.py:37 and stereovision_tpu/models/elas.py:40-109).
+
+Reference equivalents:
+  computeDelaunayTriangulation  src/serial_includes/elas/elas.cpp:442-501
+  addCornerSupportPoints        elas.cpp:235-264
+
+The span code (decoded on the device by ops.spans.expand_tri_spans) is
+(H, S, 3) uint8 of [gap, id_lo, id_hi], 3 bytes a run: gap is the column
+delta from the previous run's start (0 for the first run of a row), gaps
+over 255 are split into filler runs that repeat the previous id, and the
+id is a little-endian uint16 with 0xFFFF for -1.  Rows are padded with
+repeat-fillers.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import Dict, List, Optional
+
+import numpy as np
+from scipy.spatial import Delaunay
+
+from .params import ElasParams
+from .raster import filter_support_sequential, rasterize
+
+
+def _warn(msg: str, notes: Optional[List[str]]) -> None:
+    """Append msg to notes, or warn with it where there is no list."""
+    if notes is None:
+        warnings.warn(msg)
+    else:
+        notes.append(msg)
+
+
+def support_points_from_grid(d_can: np.ndarray, step: int) -> np.ndarray:
+    """Dense candidate grid -> (N, 3) int32 [u, v, d] support points, in the
+    reference's u-major emission order (elas.cpp:424-428)."""
+    Hc, Wc = d_can.shape
+    uc_idx, vc_idx = np.meshgrid(np.arange(Wc), np.arange(Hc), indexing="ij")
+    dT = np.asarray(d_can).T  # (Wc, Hc) so iteration order matches u-major
+    mask = dT >= 0
+    us = (uc_idx[mask] * step).astype(np.int32)
+    vs = (vc_idx[mask] * step).astype(np.int32)
+    ds = dT[mask].astype(np.int32)
+    return np.stack([us, vs, ds], axis=1).astype(np.int32)
+
+
+def add_corner_support_points(pts: np.ndarray, width: int,
+                              height: int) -> np.ndarray:
+    """Append 6 border points with nearest-neighbour disparities
+    (reference elas.cpp:235-264)."""
+    border = np.array(
+        [[0, 0, 0], [0, height - 1, 0], [width - 1, 0, 0],
+         [width - 1, height - 1, 0]], dtype=np.int64)
+    if len(pts):
+        for i in range(4):
+            du = border[i, 0] - pts[:, 0].astype(np.int64)
+            dv = border[i, 1] - pts[:, 1].astype(np.int64)
+            j = np.argmin(du * du + dv * dv)
+            border[i, 2] = pts[j, 2]
+    extra = np.array(
+        [[border[2, 0] + border[2, 2], border[2, 1], border[2, 2]],
+         [border[3, 0] + border[3, 2], border[3, 1], border[3, 2]]],
+        dtype=np.int64)
+    allb = np.concatenate([border, extra], axis=0).astype(np.int32)
+    return np.concatenate([pts, allb], axis=0) if len(pts) else allb
+
+
+def triangulate(pts: np.ndarray, right_image: bool) -> np.ndarray:
+    """Delaunay triangulation of support points; for the right image the
+    points are projected to (u - d, v) (reference elas.cpp:451-461).
+    Returns (T, 3) int32 corner indices (SciPy's Qhull, as in the JAX
+    package)."""
+    if right_image:
+        xy = np.stack([pts[:, 0] - pts[:, 2], pts[:, 1]], 1).astype(np.float64)
+    else:
+        xy = pts[:, :2].astype(np.float64)
+    if len(xy) < 3:
+        return np.zeros((0, 3), np.int32)
+    try:
+        tri = Delaunay(xy)
+    except Exception:   # Qhull rejects degenerate (e.g. collinear) sets
+        return np.zeros((0, 3), np.int32)
+    return tri.simplices.astype(np.int32)
+
+
+def host_geometry(d_can: np.ndarray, p: ElasParams, width: int, height: int,
+                  rasterize, n_cap: Optional[int] = None,
+                  notes: Optional[List[str]] = None):
+    """Host middle stage: support grid -> support points, triangles and
+    triangle-id maps (the JAX host_geometry without its f64 oracle planes,
+    which the engine never reads).
+
+    n_cap: hard cap on support points (the engine's pad size); overflow is
+    thinned UNIFORMLY before triangulation so triangle indices stay
+    consistent with the shipped point list.  notes: a list that takes the
+    thinning's warning in place of the warnings module.
+
+    Returns dict with pts (N, 3) int32, tris_l/r (T, 3) int32 and
+    tri_id_l/r (H, W) int32."""
+    pts = support_points_from_grid(np.asarray(d_can), p.step)
+    margin = 6 if p.add_corners else 0   # corner slots only when appended
+    if n_cap is not None and len(pts) > n_cap - margin:
+        keep = n_cap - margin
+        _warn("support points thinned: %d -> %d (n_max=%d)"
+              % (len(pts), keep, n_cap), notes)
+        pts = pts[np.arange(keep) * len(pts) // keep]
+    if p.add_corners:
+        pts = add_corner_support_points(pts, width, height)
+    out = {"pts": pts}
+    for right, tag in ((False, "l"), (True, "r")):
+        tris = triangulate(pts, right)
+        out["tris_" + tag] = tris
+        out["tri_id_" + tag] = rasterize(pts, tris, right, width, height)
+    return out
+
+
+def encode_tri_spans(tri: np.ndarray, s_max: int,
+                     notes: Optional[List[str]] = None) -> np.ndarray:
+    """Dense (H, W) int triangle-id map -> (H, s_max, 3) uint8 packed spans.
+    Rows with more than s_max runs keep their first s_max (the previous id
+    then persists over the dropped tail) and a warning is emitted (into
+    notes, where it is given)."""
+    tri = np.asarray(tri)
+    if tri.max(initial=-1) >= 0xFFFF:
+        raise ValueError("triangle id %d overflows the uint16 span codec"
+                         % int(tri.max()))
+    H, W = tri.shape
+    change = np.empty((H, W), dtype=bool)
+    change[:, 0] = True
+    np.not_equal(tri[:, 1:], tri[:, :-1], out=change[:, 1:])
+    counts = change.sum(axis=1)
+    rows, cols = np.nonzero(change)           # row-major order
+    offsets = np.cumsum(counts) - counts
+    k = np.arange(rows.size) - offsets[rows]  # run index within row
+    ids = tri[rows, cols].astype(np.int64)
+
+    gaps = np.empty_like(cols)
+    first = k == 0
+    gaps[first] = cols[first]                 # == 0 by construction
+    gaps[~first] = cols[~first] - cols[np.nonzero(~first)[0] - 1]
+    # split gaps > 255 into repeat-fillers that precede their run
+    n_ins = np.maximum(0, (gaps + 254) // 255 - 1)
+    ins_incl = np.cumsum(n_ins)
+    ins_excl = ins_incl - n_ins
+    row_base = ins_excl[offsets[rows]] if rows.size else ins_excl
+    k_new = k + (ins_incl - row_base)
+    gaps_real = gaps - 255 * n_ins            # in [0, 255]
+
+    new_counts = np.zeros(H, np.int64)
+    if rows.size:
+        np.add.at(new_counts, rows, 1 + n_ins)
+    if new_counts.max(initial=0) > s_max:
+        _warn("tri-span overflow: row has %d runs > s_max=%d; tail runs "
+              "dropped (approximate)" % (int(new_counts.max()), s_max), notes)
+
+    # every slot starts as a filler repeating the row's last run id; real
+    # runs and the mid-row fillers of >255-column gaps are scattered in
+    out_gap = np.full((H, s_max), 255, np.uint8)
+    out_id = np.broadcast_to(tri[:, -1:].astype(np.int64),
+                             (H, s_max)).copy()
+    sel = k_new < s_max
+    out_gap[rows[sel], k_new[sel]] = gaps_real[sel]
+    out_id[rows[sel], k_new[sel]] = ids[sel]
+    big = np.nonzero(n_ins > 0)[0]            # flat run indices (never k=0)
+    if big.size:
+        n = n_ins[big]
+        rep = np.repeat(big, n)
+        offs = np.arange(rep.size) - np.repeat(np.cumsum(n) - n, n)
+        kf = np.repeat(k_new[big] - n, n) + offs
+        fsel = kf < s_max
+        out_gap[np.repeat(rows[big], n)[fsel], kf[fsel]] = 255
+        out_id[np.repeat(rows[big], n)[fsel], kf[fsel]] = ids[rep[fsel] - 1]
+
+    u16 = (out_id & 0xFFFF).astype(np.uint16)  # -1 -> 0xFFFF
+    packed = np.empty((H, s_max, 3), np.uint8)
+    packed[..., 0] = out_gap
+    packed[..., 1] = u16 & 0xFF
+    packed[..., 2] = u16 >> 8
+    return packed
+
+
+def host_mid(d_can: np.ndarray, params: ElasParams, width: int, height: int,
+             n_max: int, t_max: int, s_max: int, host_filters: bool = True,
+             notes: Optional[List[str]] = None) -> Dict[str, np.ndarray]:
+    """Support grid -> padded geometry arrays (fixed shapes): pts (n_max, 3)
+    int16, tris_l/r (t_max, 3) int16 and the triangle-id maps on the output
+    lattice as span codes tri_l/r (Ho, s_max, 3) uint8.  host_filters=True
+    applies the reference's sequential support filters first; notes, where
+    given, takes the warnings."""
+    d_can = np.asarray(d_can)
+    if host_filters:
+        d_can = filter_support_sequential(d_can, params)
+    g = host_geometry(d_can, params, width, height, rasterize=rasterize,
+                      n_cap=n_max, notes=notes)
+    pts = np.full((n_max, 3), -1, np.int16)
+    n = min(len(g["pts"]), n_max)
+    pts[:n] = g["pts"][:n]
+    out = {"pts": pts}
+    Ho, Wo = params.out_shape(width, height)
+    for tag in ("l", "r"):
+        tr = np.full((t_max, 3), -1, np.int16)
+        t = min(len(g["tris_" + tag]), t_max)
+        tr[:t] = g["tris_" + tag][:t]
+        out["tris_" + tag] = tr
+        tri = np.where(g["tri_id_" + tag] >= t_max, -1, g["tri_id_" + tag])
+        if params.subsampling:
+            # matching samples only the output lattice: code spans there
+            tri = tri[::2, ::2][:Ho, :Wo]
+        out["tri_" + tag] = encode_tri_spans(tri, s_max, notes)
+    return out
