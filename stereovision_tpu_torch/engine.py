@@ -18,6 +18,23 @@ one-dispatch mode (engine.py:297-336): each batch's stage A and stage B
 with the reprojection are one replay of a CUDA graph each
 (ElasEngine.stage_graphs), from `pipeline_depth` pairs of graphs made on
 the caller's thread before the pipeline starts.
+
+Spans (profiling.py, while tracing is on).  process_frame and stream
+record each frame as the root "svtt.frame" (its id from the ElasEngine's
+frame_ids, its count "entry" the entry point) with the children
+"svtt.gray", "svtt.stage_a", "svtt.fetch_support" (the support grid to the
+host), "svtt.host_mid", "svtt.upload_geometry" (packing and the enqueued
+copy), "svtt.stage_b", "svtt.reproject", "svtt.fetch_dmap" and
+"svtt.fetch_cloud"; stream's stage A of a frame dispatched ahead is a root
+"svtt.frame" of its own.  stream_batched records each batch as the root
+"svtt.batch" (counts batch and first, its first frame's id) on the
+prefetch thread ("svtt.gray", "svtt.upload_images", "svtt.stage_a") and on
+the tail worker ("svtt.queue_wait" from submission to start,
+"svtt.fetch_support", "svtt.host_mid_pool", "svtt.upload_geometry",
+"svtt.stage_b", "svtt.reproject", "svtt.fetch_dmap", "svtt.fetch_cloud");
+the host middle's own spans come back from the pool's workers, frame by
+frame.  Under fused=True, "svtt.stage_a" and "svtt.stage_b" are each one
+graph replay (stage B's with the reprojection).
 """
 
 from __future__ import annotations
@@ -35,6 +52,7 @@ from typing import Dict, Iterable, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from . import profiling as P
 from .device import resolve_device
 from .hostlib.geometry import host_mid_standalone
 from .io.calibration import Rectification, rectification_from_yaml
@@ -197,13 +215,19 @@ class StereoEngine:
             points = apply_robot_transform(points, XR, XT)
         return dmap, points
 
-    def _run_dense(self, desc1, desc2, g):
-        """Stage B and the frame tail from host_mid products: the packed
-        geometry goes up in one copy.  -> (D1, dmap, points (pc_h, pc_w,
-        3))."""
-        D1, _ = self.elas.stage_dense(desc1, desc2,
-                                      *self.elas.upload_geometry(g))
-        dmap, points = self.reproject(D1)
+    def _run_dense(self, desc1, desc2, d_can):
+        """The support grid to the host, the host middle, and stage B with
+        the frame tail from its products: the packed geometry goes up in
+        one copy.  -> (D1, dmap, points (pc_h, pc_w, 3))."""
+        with P.span("svtt.fetch_support"):
+            d_can = to_host(d_can)
+        g = self.elas.host_mid(d_can)
+        with P.span("svtt.upload_geometry"):
+            geo = self.elas.upload_geometry(g)
+        with P.span("svtt.stage_b"):
+            D1, _ = self.elas.stage_dense(desc1, desc2, *geo)
+        with P.span("svtt.reproject"):
+            dmap, points = self.reproject(D1)
         return D1, dmap, points
 
     def process_frame(self, left: np.ndarray, right: np.ndarray,
@@ -217,19 +241,23 @@ class StereoEngine:
         the display disparity and leaves the cloud on the device; "device"
         leaves everything on the device."""
         _check_fetch(fetch)
-        t0 = time.perf_counter()
-        g1 = bgr_to_gray(left)
-        g2 = bgr_to_gray(right)
-        td = time.perf_counter()
-        desc1, desc2, d_can = self.elas.stage_support(g1, g2)
-        g = self.elas.host_mid(to_host(d_can))
-        D1, dmap, points = self._run_dense(desc1, desc2, g)
-        if fetch in ("host", "dmap"):
-            dmap = to_host(dmap)
-        tq = time.perf_counter()
-        if fetch == "host":
-            points = to_host(points).reshape(-1, 3)
-        t1 = time.perf_counter()
+        with P.frame(self.elas.frame_ids, "process_frame"):
+            t0 = time.perf_counter()
+            with P.span("svtt.gray"):
+                g1 = bgr_to_gray(left)
+                g2 = bgr_to_gray(right)
+            td = time.perf_counter()
+            with P.span("svtt.stage_a"):
+                desc1, desc2, d_can = self.elas.stage_support(g1, g2)
+            D1, dmap, points = self._run_dense(desc1, desc2, d_can)
+            if fetch in ("host", "dmap"):
+                with P.span("svtt.fetch_dmap"):
+                    dmap = to_host(dmap)
+            tq = time.perf_counter()
+            if fetch == "host":
+                with P.span("svtt.fetch_cloud"):
+                    points = to_host(points).reshape(-1, 3)
+            t1 = time.perf_counter()
         # dmap_t starts after the gray conversion, as the JAX engine's
         self.timings = {"t_t": t1 - t0, "dmap_t": tq - td, "pc_t": t1 - tq}
         return {"dmap": dmap, "disparity": D1, "points": points,
@@ -255,24 +283,31 @@ class StereoEngine:
             except StopIteration:
                 return False
             t0 = time.perf_counter()
-            q.append((t0, self.elas.stage_support(bgr_to_gray(lf),
-                                                  bgr_to_gray(rf))))
+            with P.frame(self.elas.frame_ids, "stream") as fr:
+                with P.span("svtt.gray"):
+                    g1, g2 = bgr_to_gray(lf), bgr_to_gray(rf)
+                with P.span("svtt.stage_a"):
+                    q.append((t0, fr.frame_id,
+                              self.elas.stage_support(g1, g2)))
             return True
 
         for _ in range(lookahead):
             if not dispatch_a():
                 break
         while q:
-            t0, (desc1, desc2, d_can) = q.popleft()
-            g = self.elas.host_mid(to_host(d_can))
-            _, dmap_dev, points_dev = self._run_dense(desc1, desc2, g)
-            dispatch_a()
-            dmap = to_host(dmap_dev)
-            tq = time.perf_counter()
-            points = points_dev
-            if fetch == "host":
-                points = to_host(points_dev).reshape(-1, 3)
-            t1 = time.perf_counter()
+            t0, fid, (desc1, desc2, d_can) = q.popleft()
+            with P.root("svtt.frame", fid, entry="stream"):
+                _, dmap_dev, points_dev = self._run_dense(desc1, desc2,
+                                                          d_can)
+                dispatch_a()
+                with P.span("svtt.fetch_dmap"):
+                    dmap = to_host(dmap_dev)
+                tq = time.perf_counter()
+                points = points_dev
+                if fetch == "host":
+                    with P.span("svtt.fetch_cloud"):
+                        points = to_host(points_dev).reshape(-1, 3)
+                t1 = time.perf_counter()
             # dmap_t: until the display disparity reached the host; pc_t:
             # the cloud's fetch after it (reference stereo_vision.cpp:682)
             self.timings = {"t_t": t1 - t0, "dmap_t": tq - t0,
@@ -335,13 +370,22 @@ class StereoEngine:
             n_real = len(fs)
             while len(fs) < batch:      # pad a short tail batch
                 fs.append(fs[-1])
-            pairs = np.stack([[bgr_to_gray(lf), bgr_to_gray(rf)]
-                              for lf, rf in fs])      # (B, 2, H, W): 1 H2D
-            t0 = time.perf_counter()
-            out = upload(pairs, self.device)
-            if not fused:
-                out = self.elas.stage_support_batched(out)
-            return t0, n_real, out, _record(cuda)
+            ids = (None, None)
+            if P.recording():
+                # an id for each frame of the batch, padding included
+                ids = (self.elas.batch_ids.take(),
+                       self.elas.frame_ids.take(batch))
+            with P.root("svtt.batch", ids[1], batch=ids[0], first=ids[1]):
+                with P.span("svtt.gray"):
+                    pairs = np.stack([[bgr_to_gray(lf), bgr_to_gray(rf)]
+                                      for lf, rf in fs])  # (B, 2, H, W)
+                t0 = time.perf_counter()
+                with P.span("svtt.upload_images"):
+                    out = upload(pairs, self.device)      # 1 H2D
+                if not fused:
+                    with P.span("svtt.stage_a"):
+                        out = self.elas.stage_support_batched(out)
+            return t0, n_real, out, _record(cuda), ids
 
         def host_middle(d_cans):
             dcs = [d_cans[i] for i in range(d_cans.shape[0])]
@@ -359,43 +403,62 @@ class StereoEngine:
                                   % (err,))
                     host_mode["mode"] = "thread"
             args = self.elas.host_args
-            return list(ex.map(lambda dc: host_mid_standalone(dc, *args),
-                               dcs))
+            first = P.current_frame()
 
-        def run_tail(entry):
-            t0, n, out, ready = entry
-            _wait(cuda, ready, out)
-            if fused:
-                stage_a, stage_b = free.get()
-                try:
-                    return tail(t0, n, stage_a(out), stage_b)
-                finally:
-                    # every fetch and clone of the pair's outputs is done:
-                    # tail ends with this stream synchronised
-                    free.put((stage_a, stage_b))
-            return tail(t0, n, out, None)
+            def one(i, dc):
+                with P.in_frame(None if first is None else first + i):
+                    return host_mid_standalone(dc, *args)
+            return list(ex.map(one, range(len(dcs)), dcs))
+
+        def run_tail(entry, submitted):
+            t0, n, out, ready, (bid, fid) = entry
+            with P.root("svtt.batch", fid, batch=bid, first=fid):
+                P.record("svtt.queue_wait", submitted,
+                         time.perf_counter_ns())
+                _wait(cuda, ready, out)
+                if fused:
+                    stage_a, stage_b = free.get()
+                    try:
+                        with P.span("svtt.stage_a"):
+                            out = stage_a(out)
+                        return tail(t0, n, out, stage_b)
+                    finally:
+                        # every fetch and clone of the pair's outputs is
+                        # done: tail ends with this stream synchronised
+                        free.put((stage_a, stage_b))
+                return tail(t0, n, out, None)
 
         def tail(t0, n, out, stage_b):
             desc1, desc2, d_can = out
-            gs = host_middle(to_host(d_can))
+            with P.span("svtt.fetch_support"):
+                d_can = to_host(d_can)
+            with P.span("svtt.host_mid_pool"):
+                gs = host_middle(d_can)
             msgs = [m for g in gs for m in g["warnings"]]
-            buf = np.stack([self.elas.pack_geometry(g) for g in gs])
+            with P.span("svtt.upload_geometry"):
+                buf = np.stack([self.elas.pack_geometry(g) for g in gs])
+                if stage_b is None:
+                    geo = upload(buf, self.device)              # 1 H2D
             if stage_b is not None:
-                # into the graph's static buffer: 1 H2D
-                dmap, points = stage_b(desc1, desc2, buf)
-                if fetch == "device":
-                    dmap = dmap.clone()
-                if fetch != "host":
-                    points = points.clone()
+                with P.span("svtt.stage_b"):
+                    # into the graph's static buffer: 1 H2D
+                    dmap, points = stage_b(desc1, desc2, buf)
+                    if fetch == "device":
+                        dmap = dmap.clone()
+                    if fetch != "host":
+                        points = points.clone()
             else:
-                D1, _ = self.elas.stage_dense_batched(
-                    desc1, desc2, upload(buf, self.device))     # 1 H2D
-                dmap, points = self.reproject(D1)
+                with P.span("svtt.stage_b"):
+                    D1, _ = self.elas.stage_dense_batched(desc1, desc2, geo)
+                with P.span("svtt.reproject"):
+                    dmap, points = self.reproject(D1)
             if fetch in ("host", "dmap"):
-                dmap = to_host(dmap)
+                with P.span("svtt.fetch_dmap"):
+                    dmap = to_host(dmap)
             t_dmap = time.perf_counter()
             if fetch == "host":
-                points = to_host(points)
+                with P.span("svtt.fetch_cloud"):
+                    points = to_host(points)
             elif cuda:
                 torch.cuda.current_stream().synchronize()
             return t0, n, dmap, points, t_dmap, msgs
@@ -445,7 +508,8 @@ class StereoEngine:
                     e = a_futs.popleft().result()
                     submit_a()
                     if e is not None:
-                        pending.append(workers.submit(run_tail, e))
+                        pending.append(workers.submit(
+                            run_tail, e, time.perf_counter_ns()))
                 if pending:
                     yield from emit(pending.popleft().result())
         finally:

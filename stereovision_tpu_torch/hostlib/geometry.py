@@ -4,8 +4,18 @@ their span codes (counterparts of stereovision_tpu/ops/planes.py:34-122,
 stereovision_tpu/ops/spans.py:37 and stereovision_tpu/models/elas.py:40-109).
 
 This module imports no torch: the host-geometry process pool's spawned
-workers import it (and hostlib.raster, params) and nothing else of the
-package.
+workers import it (and hostlib.raster, params, profiling) and nothing else
+of the package.
+
+Spans (profiling.py; recorded only while tracing is on): host_mid opens
+"svtt.host_mid" with the counts support (points after the filters, corners
+included), thinned (the points found where more than the cap were, else
+0), tris_l, tris_r, runs_max (the span code's longest row, against s_max)
+and native (1 where the C++ library loaded, 0 on the NumPy fallbacks); its
+children are "svtt.host_mid.filters", then "svtt.host_mid.delaunay",
+"svtt.host_mid.raster" and "svtt.host_mid.span_code" once an image each.
+A pool worker records them when the call asks (_pool_host_mid) and hands
+them back under "spans".
 
 Reference equivalents:
   computeDelaunayTriangulation  src/serial_includes/elas/elas.cpp:442-501
@@ -27,8 +37,9 @@ from typing import Dict, List, Optional
 import numpy as np
 from scipy.spatial import Delaunay
 
+from .. import profiling as P
 from ..params import ElasParams
-from .raster import filter_support_sequential, rasterize
+from .raster import filter_support_sequential, get_lib, rasterize
 
 
 def _warn(msg: str, notes: Optional[List[str]]) -> None:
@@ -109,6 +120,7 @@ def host_geometry(d_can: np.ndarray, p: ElasParams, width: int, height: int,
     margin = 6 if p.add_corners else 0   # corner slots only when appended
     if n_cap is not None and len(pts) > n_cap - margin:
         keep = n_cap - margin
+        P.count(thinned=len(pts))
         _warn("support points thinned: %d -> %d (n_max=%d)"
               % (len(pts), keep, n_cap), notes)
         pts = pts[np.arange(keep) * len(pts) // keep]
@@ -116,9 +128,12 @@ def host_geometry(d_can: np.ndarray, p: ElasParams, width: int, height: int,
         pts = add_corner_support_points(pts, width, height)
     out = {"pts": pts}
     for right, tag in ((False, "l"), (True, "r")):
-        tris = triangulate(pts, right)
+        with P.span("svtt.host_mid.delaunay"):
+            tris = triangulate(pts, right)
         out["tris_" + tag] = tris
-        out["tri_id_" + tag] = rasterize(pts, tris, right, width, height)
+        with P.span("svtt.host_mid.raster"):
+            out["tri_id_" + tag] = rasterize(pts, tris, right, width,
+                                             height)
     return out
 
 
@@ -157,6 +172,7 @@ def encode_tri_spans(tri: np.ndarray, s_max: int,
     new_counts = np.zeros(H, np.int64)
     if rows.size:
         np.add.at(new_counts, rows, 1 + n_ins)
+    P.count(runs=int(new_counts.max(initial=0)))
     if new_counts.max(initial=0) > s_max:
         _warn("tri-span overflow: row has %d runs > s_max=%d; tail runs "
               "dropped (approximate)" % (int(new_counts.max()), s_max), notes)
@@ -195,26 +211,34 @@ def host_mid(d_can: np.ndarray, params: ElasParams, width: int, height: int,
     lattice as span codes tri_l/r (Ho, s_max, 3) uint8.  host_filters=True
     applies the reference's sequential support filters first; notes, where
     given, takes the warnings."""
-    d_can = np.asarray(d_can)
-    if host_filters:
-        d_can = filter_support_sequential(d_can, params)
-    g = host_geometry(d_can, params, width, height, rasterize=rasterize,
-                      n_cap=n_max, notes=notes)
-    pts = np.full((n_max, 3), -1, np.int16)
-    n = min(len(g["pts"]), n_max)
-    pts[:n] = g["pts"][:n]
-    out = {"pts": pts}
-    Ho, Wo = params.out_shape(width, height)
-    for tag in ("l", "r"):
-        tr = np.full((t_max, 3), -1, np.int16)
-        t = min(len(g["tris_" + tag]), t_max)
-        tr[:t] = g["tris_" + tag][:t]
-        out["tris_" + tag] = tr
-        tri = np.where(g["tri_id_" + tag] >= t_max, -1, g["tri_id_" + tag])
-        if params.subsampling:
-            # matching samples only the output lattice: code spans there
-            tri = tri[::2, ::2][:Ho, :Wo]
-        out["tri_" + tag] = encode_tri_spans(tri, s_max, notes)
+    with P.span("svtt.host_mid", thinned=0) as hm:
+        d_can = np.asarray(d_can)
+        if host_filters:
+            with P.span("svtt.host_mid.filters"):
+                d_can = filter_support_sequential(d_can, params)
+        g = host_geometry(d_can, params, width, height, rasterize=rasterize,
+                          n_cap=n_max, notes=notes)
+        pts = np.full((n_max, 3), -1, np.int16)
+        n = min(len(g["pts"]), n_max)
+        pts[:n] = g["pts"][:n]
+        out = {"pts": pts}
+        Ho, Wo = params.out_shape(width, height)
+        tris, runs = {}, 0
+        for tag in ("l", "r"):
+            tr = np.full((t_max, 3), -1, np.int16)
+            tris[tag] = t = min(len(g["tris_" + tag]), t_max)
+            tr[:t] = g["tris_" + tag][:t]
+            out["tris_" + tag] = tr
+            tri = np.where(g["tri_id_" + tag] >= t_max, -1,
+                           g["tri_id_" + tag])
+            if params.subsampling:
+                # matching samples only the output lattice: code spans there
+                tri = tri[::2, ::2][:Ho, :Wo]
+            with P.span("svtt.host_mid.span_code") as sc:
+                out["tri_" + tag] = encode_tri_spans(tri, s_max, notes)
+            runs = max(runs, sc.counts.get("runs", 0))
+        hm.add(support=n, tris_l=tris["l"], tris_r=tris["r"],
+               runs_max=runs, native=int(get_lib() is not None))
     return out
 
 
@@ -243,8 +267,19 @@ def _pool_init(params, width, height, n_max, t_max, s_max, host_filters):
                      host_filters=host_filters)
 
 
-def _pool_host_mid(d_can):
+def _pool_host_mid(d_can, trace: bool = False):
+    """host_mid_standalone in a pool worker; trace=True records its spans
+    and returns them under "spans" (profiling.Span)."""
     c = _POOL_CFG
-    return host_mid_standalone(d_can, c["params"], c["width"], c["height"],
-                               c["n_max"], c["t_max"], c["s_max"],
-                               c["host_filters"])
+    if trace:
+        P.trace_start()
+    try:
+        out = host_mid_standalone(d_can, c["params"], c["width"],
+                                  c["height"], c["n_max"], c["t_max"],
+                                  c["s_max"], c["host_filters"])
+    finally:
+        if trace:
+            P.trace_stop()
+    if trace:
+        out["spans"] = P.trace_drain()["spans"]
+    return out

@@ -28,6 +28,13 @@ B each one replay of a CUDA graph (graphs.StageGraph, K1-K4 inside), the
 host middle between them; stage_graphs makes the pair for it and for
 StereoEngine.stream_batched(fused=True).
 
+Spans (profiling.py, while tracing is on): process_jit records each frame
+as the root "svtt.frame" with the children "svtt.stage_a" (graph A's
+replay), "svtt.fetch_support", "svtt.host_mid", "svtt.upload_geometry"
+(the packing) and "svtt.stage_b" (graph B's replay with its input copy),
+none inside a captured function; frame_ids and batch_ids number the frames
+and batches of this engine and of its StereoEngine.
+
 row_pad=(in_pad, out_pad) is the row-sharded pipeline's mode
 (parallel/shard.py; elas.py:118-132, :210-222, :300-381): stage A takes
 images padded to H + in_pad rows, stage B gives maps of Ho + out_pad rows
@@ -45,6 +52,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import profiling as P
 from ..device import resolve_device
 from ..graphs import StageGraph
 from ..hostlib import geometry
@@ -87,6 +95,7 @@ class ElasEngine:
         self.s_max = max(64, min(self.width // 4, self.Wo))
         self._host_pool = None
         self._pool_lock = threading.Lock()
+        self.frame_ids, self.batch_ids = P.Ids(), P.Ids()
 
     # ---- lifecycle ----------------------------------------------------------
 
@@ -131,9 +140,20 @@ class ElasEngine:
     def host_mid_parallel(self, d_cans: Sequence[np.ndarray],
                           workers: int = 4):
         """host_mid_standalone over a batch of support grids in the pool's
-        worker processes, in order."""
+        worker processes, in order.  While tracing, the workers record
+        their host-middle spans, which join this process's ring in frames
+        current + 0, 1, ... (the thread's current frame: the batch's
+        first)."""
         pool = self.host_pool(workers)
-        return list(pool.map(_pool_host_mid, list(d_cans)))
+        d_cans = list(d_cans)
+        trace = P.recording()
+        out = list(pool.map(_pool_host_mid, d_cans, [trace] * len(d_cans)))
+        if trace:
+            first = P.current_frame()
+            for i, g in enumerate(out):
+                P.ingest(g.pop("spans", ()),
+                         None if first is None else first + i)
+        return out
 
     # ---- device stage A ---------------------------------------------------
 
@@ -366,17 +386,23 @@ class ElasEngine:
         done = []
 
         def run(I1, I2):
-            with lock:
+            with lock, P.frame(self.frame_ids, "process_jit"):
                 if not graphs:
                     graphs.extend(self.stage_graphs())
                 stage_a, stage_b = graphs
                 if done:
                     torch.cuda.current_stream(self.device).wait_event(
                         done.pop())
-                desc1, desc2, d_can = stage_a(I1, I2)
-                buf = self.pack_geometry(self.host_mid(fetch(d_can)))
-                D1, D2 = stage_b(desc1, desc2, buf)
-                D1, D2 = D1.clone(), D2.clone()
+                with P.span("svtt.stage_a"):
+                    desc1, desc2, d_can = stage_a(I1, I2)
+                with P.span("svtt.fetch_support"):
+                    d_can = fetch(d_can)
+                g = self.host_mid(d_can)
+                with P.span("svtt.upload_geometry"):
+                    buf = self.pack_geometry(g)
+                with P.span("svtt.stage_b"):
+                    D1, D2 = stage_b(desc1, desc2, buf)
+                    D1, D2 = D1.clone(), D2.clone()
                 if cuda:
                     done.append(torch.cuda.Event())
                     done[0].record()
