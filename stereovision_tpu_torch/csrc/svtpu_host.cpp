@@ -1,6 +1,7 @@
-// Host-side native helpers for the stereo engine (a copy of
-// stereovision_tpu/csrc/svtpu_host.cpp, kept in the PyTorch port so that it
-// never imports the JAX package).
+// Host-side native helpers for the stereo engine (the filters and the
+// rasterizer are a copy of stereovision_tpu/csrc/svtpu_host.cpp's, kept in
+// the PyTorch port so that it never imports the JAX package; the span coder
+// is the port's own).
 //
 // The device owns all dense pixel work; these routines cover the tiny
 // irregular host stage between the two device stages:
@@ -15,7 +16,10 @@
 //     pixel-visit semantics (computeDisparity triangle loop,
 //     elas.cpp:839-941: corners sorted ascending in u, spans between the
 //     AC line and AB/BC lines, lower bound inclusive / upper exclusive,
-//     later triangles overwrite earlier ones).
+//     later triangles overwrite earlier ones),
+//   * the triangle-id span code (the port's own: the format of
+//     stereovision_tpu_torch/hostlib/geometry.py:encode_tri_spans, byte for
+//     byte, read straight off the rasterizer's map).
 //
 // Built as a plain C ABI shared library, loaded with ctypes
 // (stereovision_tpu_torch/hostlib/raster.py).  No Python headers needed.
@@ -24,6 +28,7 @@
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <vector>
 
 extern "C" {
 
@@ -135,6 +140,64 @@ void sv_rasterize(const int32_t* tris, int num_tris, const float* pu,
             }
         }
     }
+}
+
+// ---------------------------------------------------------------------------
+// Triangle-id span code
+
+// Codes the (rows, cols) lattice tri[r * row_stride + c * col_stride] of a
+// triangle-id map into out, (rows, s_max, 3) uint8 of [gap, id_lo, id_hi]:
+// ids >= t_max read as -1 (coded 0xFFFF); gap is the column delta from the
+// previous run's start (0 for a row's first run); a gap over 255 is split
+// into 255-gap fillers repeating the previous run's id; runs past s_max are
+// dropped; the row's free slots are 255-gap fillers of its last id.
+// Returns the longest row's run count (fillers included, dropped runs too),
+// or -1 where an id >= 0xFFFF survives the mask (out is then incomplete).
+int sv_encode_tri_spans(const int32_t* tri, int rows, int cols,
+                        long row_stride, long col_stride, int32_t t_max,
+                        int s_max, uint8_t* out) {
+    int runs_max = 0;
+    std::vector<int> starts(cols);
+    for (int r = 0; r < rows; ++r) {
+        const int32_t* src = tri + (long)r * row_stride;
+        auto at = [&](int c) {
+            const int32_t id = src[c * col_stride];
+            return id >= t_max ? -1 : id;
+        };
+        // the row's run starts, with no branch on the pixels: runs are a
+        // few pixels long, so a branch at each run's end would mispredict
+        int k = 1;
+        int32_t prev = at(0);
+        starts[0] = 0;
+        for (int c = 1; c < cols; ++c) {
+            const int32_t id = at(c);
+            starts[k] = c;
+            k += id != prev;
+            prev = id;
+        }
+        uint8_t* o = out + (long)r * s_max * 3;
+        int n = 0;
+        auto put = [&](int gap, int32_t id) {
+            if (n < s_max) {
+                o[3 * n] = (uint8_t)gap;
+                o[3 * n + 1] = (uint8_t)(id & 0xFF);
+                o[3 * n + 2] = (uint8_t)((id >> 8) & 0xFF);
+            }
+            ++n;
+        };
+        int32_t last = -1;
+        for (int j = 0; j < k; ++j) {
+            const int32_t id = at(starts[j]);
+            if (id >= 0xFFFF) return -1;
+            int gap = j ? starts[j] - starts[j - 1] : 0;
+            for (; gap > 255; gap -= 255) put(255, last);
+            put(gap, id);
+            last = id;
+        }
+        runs_max = std::max(runs_max, n);
+        while (n < s_max) put(255, last);
+    }
+    return runs_max;
 }
 
 }  // extern "C"

@@ -3,6 +3,14 @@ support grid -> support points, Delaunay triangles, triangle-id maps and
 their span codes (counterparts of stereovision_tpu/ops/planes.py:34-122,
 stereovision_tpu/ops/spans.py:37 and stereovision_tpu/models/elas.py:40-109).
 
+Native where the host library loads (hostlib.raster.get_lib): the support
+filters, the rasterizer and the span coding (tri_span_code: one C++ pass a
+map, which masks ids >= t_max and reads the output lattice in place).  In
+NumPy and SciPy always: the support list, the corners and the padding, and
+the Delaunay triangulation (Qhull).  Where the library is unavailable, each
+native step runs its NumPy version (the span coding: np.where, the lattice
+slice and encode_tri_spans, the native coder's oracle, equal byte for byte).
+
 This module imports no torch: the host-geometry process pool's spawned
 workers import it (and hostlib.raster, params, profiling) and nothing else
 of the package.
@@ -13,7 +21,9 @@ included), thinned (the points found where more than the cap were, else
 0), tris_l, tris_r, runs_max (the span code's longest row, against s_max)
 and native (1 where the C++ library loaded, 0 on the NumPy fallbacks); its
 children are "svtt.host_mid.filters", then "svtt.host_mid.delaunay",
-"svtt.host_mid.raster" and "svtt.host_mid.span_code" once an image each.
+"svtt.host_mid.raster" and "svtt.host_mid.span_code" once an image each,
+the last with the counts runs (its longest row) and native (1 where the
+C++ coder ran, 0 on encode_tri_spans).
 A pool worker records them when the call asks (_pool_host_mid) and hands
 them back under "spans".
 
@@ -32,7 +42,7 @@ repeat-fillers.
 from __future__ import annotations
 
 import warnings
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 from scipy.spatial import Delaunay
@@ -137,6 +147,21 @@ def host_geometry(d_can: np.ndarray, p: ElasParams, width: int, height: int,
     return out
 
 
+def _check_ids(tri: np.ndarray) -> None:
+    """Raise where an id of the (masked) map does not fit the codec."""
+    if tri.max(initial=-1) >= 0xFFFF:
+        raise ValueError("triangle id %d overflows the uint16 span codec"
+                         % int(tri.max()))
+
+
+def _count_runs(runs: int, s_max: int, notes: Optional[List[str]]) -> None:
+    """Count the longest row's runs; warn where they overflow s_max."""
+    P.count(runs=runs)
+    if runs > s_max:
+        _warn("tri-span overflow: row has %d runs > s_max=%d; tail runs "
+              "dropped (approximate)" % (runs, s_max), notes)
+
+
 def encode_tri_spans(tri: np.ndarray, s_max: int,
                      notes: Optional[List[str]] = None) -> np.ndarray:
     """Dense (H, W) int triangle-id map -> (H, s_max, 3) uint8 packed spans.
@@ -144,9 +169,7 @@ def encode_tri_spans(tri: np.ndarray, s_max: int,
     then persists over the dropped tail) and a warning is emitted (into
     notes, where it is given)."""
     tri = np.asarray(tri)
-    if tri.max(initial=-1) >= 0xFFFF:
-        raise ValueError("triangle id %d overflows the uint16 span codec"
-                         % int(tri.max()))
+    _check_ids(tri)
     H, W = tri.shape
     change = np.empty((H, W), dtype=bool)
     change[:, 0] = True
@@ -172,10 +195,7 @@ def encode_tri_spans(tri: np.ndarray, s_max: int,
     new_counts = np.zeros(H, np.int64)
     if rows.size:
         np.add.at(new_counts, rows, 1 + n_ins)
-    P.count(runs=int(new_counts.max(initial=0)))
-    if new_counts.max(initial=0) > s_max:
-        _warn("tri-span overflow: row has %d runs > s_max=%d; tail runs "
-              "dropped (approximate)" % (int(new_counts.max()), s_max), notes)
+    _count_runs(int(new_counts.max(initial=0)), s_max, notes)
 
     # every slot starts as a filler repeating the row's last run id; real
     # runs and the mid-row fillers of >255-column gaps are scattered in
@@ -203,6 +223,38 @@ def encode_tri_spans(tri: np.ndarray, s_max: int,
     return packed
 
 
+def tri_span_code(tri_id: np.ndarray, t_max: int, s_max: int,
+                  shape: Tuple[int, int], step: int,
+                  notes: Optional[List[str]] = None) -> np.ndarray:
+    """A rasterized (H, W) int32 triangle-id map -> the span code of its
+    output lattice tri_id[::step, ::step][:Ho, :Wo] (shape = (Ho, Wo)),
+    ids >= t_max read as -1: encode_tri_spans of that lattice, byte for
+    byte, with its count and warning, in one native pass that reads the
+    map in place.  Where the library is unavailable, the lattice is masked
+    and sliced in NumPy and encode_tri_spans codes it; the count native
+    says which ran."""
+    lib = get_lib()
+    P.count(native=int(lib is not None))
+    Ho, Wo = shape
+    if lib is None:
+        tri = np.where(tri_id >= t_max, -1, tri_id)
+        return encode_tri_spans(tri[::step, ::step][:Ho, :Wo], s_max, notes)
+    tri_id = np.ascontiguousarray(tri_id, dtype=np.int32)
+    H, W = tri_id.shape
+    if not (0 < Ho <= -(-H // step) and 0 < Wo <= -(-W // step)):
+        raise ValueError("lattice %dx%d at step %d outside a %dx%d map"
+                         % (Wo, Ho, step, W, H))
+    out = np.empty((Ho, s_max, 3), np.uint8)
+    runs = lib.sv_encode_tri_spans(tri_id, Ho, Wo, step * W, step,
+                                   min(t_max, np.iinfo(np.int32).max),
+                                   s_max, out)
+    if runs < 0:    # an id >= 0xFFFF survived the mask
+        _check_ids(np.where(tri_id >= t_max, -1,
+                            tri_id)[::step, ::step][:Ho, :Wo])
+    _count_runs(runs, s_max, notes)
+    return out
+
+
 def host_mid(d_can: np.ndarray, params: ElasParams, width: int, height: int,
              n_max: int, t_max: int, s_max: int, host_filters: bool = True,
              notes: Optional[List[str]] = None) -> Dict[str, np.ndarray]:
@@ -222,23 +274,22 @@ def host_mid(d_can: np.ndarray, params: ElasParams, width: int, height: int,
         n = min(len(g["pts"]), n_max)
         pts[:n] = g["pts"][:n]
         out = {"pts": pts}
-        Ho, Wo = params.out_shape(width, height)
+        # matching samples only the output lattice: code spans there
+        lattice = params.out_shape(width, height)
+        step = 2 if params.subsampling else 1
+        native = int(get_lib() is not None)
         tris, runs = {}, 0
         for tag in ("l", "r"):
             tr = np.full((t_max, 3), -1, np.int16)
             tris[tag] = t = min(len(g["tris_" + tag]), t_max)
             tr[:t] = g["tris_" + tag][:t]
             out["tris_" + tag] = tr
-            tri = np.where(g["tri_id_" + tag] >= t_max, -1,
-                           g["tri_id_" + tag])
-            if params.subsampling:
-                # matching samples only the output lattice: code spans there
-                tri = tri[::2, ::2][:Ho, :Wo]
             with P.span("svtt.host_mid.span_code") as sc:
-                out["tri_" + tag] = encode_tri_spans(tri, s_max, notes)
+                out["tri_" + tag] = tri_span_code(
+                    g["tri_id_" + tag], t_max, s_max, lattice, step, notes)
             runs = max(runs, sc.counts.get("runs", 0))
         hm.add(support=n, tris_l=tris["l"], tris_r=tris["r"],
-               runs_max=runs, native=int(get_lib() is not None))
+               runs_max=runs, native=native)
     return out
 
 

@@ -1,18 +1,21 @@
-"""ctypes bindings for the native host helpers (csrc/svtpu_host.cpp, a copy
-of stereovision_tpu/csrc/svtpu_host.cpp), with NumPy fallbacks
-(counterpart of stereovision_tpu/hostlib/raster.py).
+"""ctypes bindings for the native host helpers (csrc/svtpu_host.cpp: the
+filters and rasterizer of stereovision_tpu/csrc/svtpu_host.cpp, copied, and
+the port's own span coder), with NumPy fallbacks (counterpart of
+stereovision_tpu/hostlib/raster.py).
 
 The library is built with g++ at first use into build/stereovision_tpu_torch/
 (see stereovision_tpu_torch.native), with the same flags as the JAX
-package's build, so both packages run the same host code.  Where it cannot
-be built or loaded (no g++, a failed compile, a failed load) get_lib()
-returns None, once and for good, and the two entry points run their NumPy
-versions, as the JAX package's do: filter_support_sequential runs
-_filter_support_np (equal to the native filters) and rasterize runs
-rasterize_tri_ids.  The native rasterizer is built with -O3
--march=native, which lets g++ contract its v = a * u + b into a fused
-multiply-add where the CPU has one, so the two rasterizers may give some
-pixels to a neighbouring triangle; each equals its JAX counterpart.
+package's build, so both packages run the same filters and rasterizer.
+Where it cannot be built or loaded (no g++, a failed compile, a failed
+load) get_lib() returns None, once and for good, and the native steps run
+their NumPy versions, as the JAX package's do: filter_support_sequential
+runs _filter_support_np (equal to the native filters), rasterize runs
+rasterize_tri_ids, and hostlib.geometry.tri_span_code (sv_encode_tri_spans;
+the JAX package codes spans in NumPy only) runs encode_tri_spans (equal
+byte for byte).  The native rasterizer is built with -O3 -march=native,
+which lets g++ contract its v = a * u + b into a fused multiply-add where
+the CPU has one, so the two rasterizers may give some pixels to a
+neighbouring triangle; each equals its JAX counterpart.
 """
 
 from __future__ import annotations
@@ -52,6 +55,10 @@ def get_lib() -> Optional[ctypes.CDLL]:
     lib.sv_filter_support.restype = None
     lib.sv_rasterize.argtypes = [i32p, ci, f32p, f32p, ci, ci, i32p]
     lib.sv_rasterize.restype = None
+    lib.sv_encode_tri_spans.argtypes = [
+        i32p, ci, ci, ctypes.c_long, ctypes.c_long, ctypes.c_int32, ci,
+        np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")]
+    lib.sv_encode_tri_spans.restype = ci
     return lib
 
 

@@ -18,7 +18,15 @@ package.
       ElasEngine.process and StereoEngine.process_frame run on NumPy and
       equal the JAX package's under the same failure bit for bit;
   (d) stream_batched(host_workers="thread") under the same failure: the
-      host threads fall back too, each frame equal to JAX's.
+      host threads fall back too, each frame equal to JAX's;
+  (e) the native span coder (hostlib.geometry.tri_span_code, one C++ pass
+      over the raw id map) equals the port's NumPy encode_tri_spans of the
+      same map masked at t_max and sliced to the output lattice, byte for
+      byte, with the same runs count and overflow note, and so does the
+      fallback: both KITTI maps, the subsampled lattice, an overflowing
+      s_max, runs over 255 columns, a map of -1, a narrow map, ids up to
+      0xFFFE, seeded random maps; an id >= 0xFFFF that survives the mask
+      raises the same ValueError both ways.
 
 The tests marked `cuda` (skipped without a card) hold the card against
 the CPU under a failed build (a test forces get_lib() to None; the spawn
@@ -39,6 +47,7 @@ import pytest
 import torch
 
 from stereovision_tpu_torch import native
+from stereovision_tpu_torch import profiling as P
 from stereovision_tpu_torch.engine import StereoEngine, bgr_to_gray
 from stereovision_tpu_torch.hostlib import geometry, raster
 from stereovision_tpu_torch.models.elas import ElasEngine
@@ -383,3 +392,127 @@ def test_failed_build_on_the_card_equals_cpu(cuda, monkeypatch, tmp_path,
         D1, D2 = run(I1, I2)
         assert torch.equal(D1.cpu(), C1) and torch.equal(D2.cpu(), C2)
     assert raster.get_lib() is None
+
+
+# ---- (e) the span coder --------------------------------------------------------
+
+
+def _kitti_map(right):
+    pts, tris, (w, h) = _kitti_dense(right)
+    return raster.rasterize(pts, tris, right, w, h)
+
+
+def _past_t_max_map():
+    pts, tris, (w, h) = _past_t_max(True)
+    return raster.rasterize(pts, tris, True, w, h)
+
+
+def _runs_map(h, w, lengths, ids, seed):
+    """(h, w) int32 rows of runs, each of a length drawn from lengths and
+    an id from ids."""
+    rng = np.random.default_rng(seed)
+    out = np.empty((h, w), np.int32)
+    for row in out:
+        c = 0
+        while c < w:
+            n = int(rng.choice(lengths))
+            row[c:c + n] = rng.choice(ids)
+            c += n
+    return out
+
+
+def _long_runs():
+    """Gaps of 255, 256, 510 and 511 columns and more at a row's start, in
+    its middle and at its end (there the row's last run)."""
+    t = np.zeros((8, 1400), np.int32)
+    t[0, 600:] = 1                                    # start: 600 columns
+    t[1, :3], t[1, 3:258], t[1, 258:] = 4, 5, 6       # a gap of exactly 255
+    t[2, :3], t[2, 3:259], t[2, 259:] = 4, 5, 6       # 256
+    t[3, :10], t[3, 10:520], t[3, 520:530] = 7, -1, 8  # middle: 510
+    t[3, 530:1041] = 9                                # 511
+    t[4, :700] = np.arange(700) // 30                 # end: 700 columns
+    t[4, 700:] = 2000                                 # masked at t_max
+    t[5] = np.arange(1400) // 300                     # 300 columns a run
+    t[6, 1399] = 3                                    # one column at the end
+    return t, 1000, 64, 1, t.shape
+
+
+SPAN_CASES = {
+    "kitti_left": lambda: (_kitti_map(False), 7000, 310, 1, (375, 1242)),
+    "kitti_right": lambda: (_kitti_map(True), 7000, 310, 1, (375, 1242)),
+    "kitti_subsampled": lambda: (_kitti_map(False), 7000, 310, 2,
+                                 (187, 621)),
+    "subsampled_past_t_max": lambda: (_past_t_max_map(), T_MAX, 64, 2,
+                                      (120, 160)),
+    "s_max_8": lambda: (_kitti_map(True), 7000, 8, 1, (375, 1242)),
+    "long_runs": _long_runs,
+    "all_minus_one": lambda: (np.full((375, 1242), -1, np.int32), 100, 310,
+                              1, (375, 1242)),
+    "all_masked": lambda: (_kitti_map(False), 0, 310, 1, (375, 1242)),
+    "narrow": lambda: (_runs_map(30, 100, [1, 3, 40], np.arange(-1, 50), 1),
+                       40, 64, 1, (30, 100)),
+    "ids_to_fffe": lambda: (_runs_map(20, 900, [1, 7, 300],
+                                      [-1, 0, 0xFF00, 0xFFFE], 2),
+                            np.iinfo(np.int32).max, 64, 1, (20, 900)),
+    "id_ffff_masked": lambda: (_runs_map(20, 900, [20, 90], [0xFFFE, 0xFFFF,
+                                                         0x7FFFFFFF], 3),
+                               0xFFFF, 64, 1, (20, 900)),
+    **{"random_%d" % seed: (lambda seed=seed: (
+        _runs_map(37, 1203, [1, 2, 5, 11, 200, 256, 300, 700],
+                  np.arange(-1, 3000), seed),
+        [2500, 500, 3001][seed % 3], [310, 16, 64][seed % 3],
+        1 + seed % 2, [(37, 1203), (18, 601)][seed % 2]))
+       for seed in range(10, 14)},
+}
+
+
+def _coded(fn):
+    """fn(notes) -> (its code, the runs it counted, its notes)."""
+    notes = []
+    P.trace_stop()
+    P.trace_drain()
+    P.trace_start()
+    try:
+        with P.span("test.span_code") as s:
+            code = fn(notes)
+    finally:
+        P.trace_stop()
+        P.trace_drain()
+    return code, s.counts.get("runs"), notes
+
+
+@pytest.mark.parametrize("case", sorted(SPAN_CASES))
+def test_native_span_code_equals_encode_tri_spans(case, monkeypatch):
+    tri_id, t_max, s_max, step, (ho, wo) = SPAN_CASES[case]()
+    lattice = np.where(tri_id >= t_max, -1, tri_id)[::step, ::step][:ho, :wo]
+    ref = _coded(lambda notes: geometry.encode_tri_spans(lattice, s_max,
+                                                         notes))
+    assert ref[0].shape == (ho, s_max, 3)
+    assert bool(ref[2]) == (ref[1] > s_max)
+    assert ref[2] or case != "s_max_8"
+    assert raster.get_lib() is not None
+    for _ in ("native", "numpy"):
+        got = _coded(lambda notes: geometry.tri_span_code(
+            tri_id, t_max, s_max, (ho, wo), step, notes))
+        _eq(got[0], ref[0])
+        assert got[1:] == ref[1:]
+        monkeypatch.setattr(geometry, "get_lib", lambda: None)
+
+
+@pytest.mark.parametrize("bad", [0xFFFF, 0x10000])
+@pytest.mark.parametrize("step", [1, 2])
+def test_span_code_rejects_ids_past_the_codec(step, bad, monkeypatch):
+    tri_id = np.full((20, 600), 7, np.int32)
+    tri_id[10, 300:304] = [0xFFFE, 0xFFFE, bad, bad]
+    tri_id[4, :] = 0x7FFFFFFF                          # masked at t_max
+    lattice = np.where(tri_id >= 1 << 20, -1, tri_id)[::step, ::step]
+    with pytest.raises(ValueError) as ref:
+        geometry.encode_tri_spans(lattice, 64)
+    assert str(bad) in str(ref.value)
+    assert raster.get_lib() is not None
+    for _ in ("native", "numpy"):
+        with pytest.raises(ValueError) as got:
+            geometry.tri_span_code(tri_id, 1 << 20, 64,
+                                   lattice.shape, step)
+        assert str(got.value) == str(ref.value)
+        monkeypatch.setattr(geometry, "get_lib", lambda: None)

@@ -357,6 +357,36 @@ def test_host_mid_counts_thinning_and_span_overflow(spans_on):
     assert hm.counts["runs_max"] > 2 and p.add_corners
 
 
+@pytest.mark.parametrize("subsampling", [False, True],
+                         ids=["full", "subsampled"])
+def test_span_code_counts_native_and_runs(subsampling, monkeypatch,
+                                          spans_on):
+    """svtt.host_mid.span_code: native 1 where the C++ coder ran, 0 with
+    get_lib forced to None for the span coding (the filters and the
+    rasterizer stay native, so both code the same id maps), runs and the
+    codes equal both ways."""
+    from stereovision_tpu_torch.params import app_params
+    p = app_params(subsampling=subsampling)
+    v, u = np.mgrid[0:H // p.step, 0:W // p.step]
+    d_can = (10 + u // 2 + v // 3).astype(np.int16)
+    d_can[::3, 1::4] = -1
+    assert raster.get_lib() is not None
+    codes, counts = [], []
+    for _ in ("native", "numpy"):
+        g = geometry.host_mid(d_can, p, W, H, n_max=1024, t_max=2056,
+                              s_max=64)
+        codes.append([g["tri_l"], g["tri_r"]])
+        counts.append([s.counts for s in P.trace_drain()["spans"]
+                       if s.name == "svtt.host_mid.span_code"])
+        monkeypatch.setattr(geometry, "get_lib", lambda: None)
+    assert [c["native"] for c in counts[0]] == [1, 1]
+    assert [c["native"] for c in counts[1]] == [0, 0]
+    assert [c["runs"] for c in counts[0]] == [c["runs"] for c in counts[1]]
+    assert all(c["runs"] > 1 for c in counts[0])
+    for a, b in zip(*codes):
+        assert np.array_equal(a, b)
+
+
 @pytest.mark.parametrize("host_workers", ["process", "thread"])
 def test_stream_batched_brings_back_the_workers_spans(host_workers, small,
                                                       spans_on):
