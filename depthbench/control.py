@@ -4,14 +4,15 @@
     python3 depthbench/control.py --config kitti_full --seeds 11 12 13 \
         --control-seeds 1 2 3 --seconds 3
 
-For each seed of --seeds, each traffic mix of a cell of the configuration
-serves the seed's pairs for a short window at the cell's own load (its
-driver, batch and pool, one engine a mix for all seeds), and the kept
-outputs are compared with the plain reference as a run compares them: the
-lower readings.  For each seed of --control-seeds the control, the
-reference with its plane tables and reprojection in bfloat16, is put in
-the program's place on the same pairs: the upper readings.  One JSON line
-a reading, and a summary line last.  Not run by the benchmark's runs.
+For each seed of --seeds, each cell of the configuration (BENCHMARK.json
+with depthbench/later.json) is run as run.py runs it, through
+harness.run_cell with a short window at the cell's own load: its readings
+are the lower ones.  For each seed of --control-seeds the control is put
+in the program's place on the same pairs and compared as a run compares:
+the upper readings.  A reading's module under checks/ may bring its own
+control (control()); the others read the stereo reference with its plane
+tables and reprojection in bfloat16.  One JSON line a reading, and a
+summary line last.  Not run by the benchmark's runs.
 """
 
 import time
@@ -26,68 +27,76 @@ import sys  # noqa: E402
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-class _NoTrace:
-    def frame(self, i):
-        pass
+def control_outputs(checks: dict, pairs, config: dict, device: str) -> dict:
+    """{reading: {pair index: the control's output}}: a reading's own
+    control() where its module has one, else the stereo reference in
+    bfloat16."""
+    from depthbench.reference.pipeline import Reference
+    outs = {n: m.control(pairs, config, device)
+            for n, m in checks.items() if hasattr(m, "control")}
+    if len(outs) < len(checks):
+        low = Reference(os.path.join(ROOT, config["calibration"]),
+                        int(config["width"]), int(config["height"]),
+                        bool(config["subsampling"]), device=device,
+                        lowp=True)
+        stereo = {k: low.frame(*p) for k, p in enumerate(pairs)}
+        outs.update({n: stereo for n in checks if n not in outs})
+    return outs
 
-    def close(self, i):
-        pass
 
-
-def readings(config_name: str, seeds, control_seeds, seconds: float) -> dict:
-    """-> {"program": {mix: [reading, ...]}, "control": [reading, ...]};
-    each reading is check.compare's dict with its seed."""
-    from stereovision_tpu_torch.engine import StereoEngine
-
+def readings(config_name: str, seeds, control_seeds, seconds: float,
+             device: str = "cuda", bench=None, overrides=None,
+             log=None) -> dict:
+    """-> {"program": {cell: [reading, ...]}, "control": [reading, ...],
+    "names": the readings the configuration names}; a program reading is
+    {name: value} of run_cell's checks with the seed, a control reading
+    check.compare's dict with its seed.  bench: a benchmark description
+    in place of BENCHMARK.json with later.json; overrides: as run_cell's."""
     from depthbench import check, frames, harness
     from depthbench.reference.pipeline import Reference
-    bench = harness.load_bench(later=True)
+    bench = bench or harness.load_bench(later=True)
     cells = [w["name"] for w in bench["workloads"]
              if w["config"] == config_name]
-    setups = {}
-    for cell in cells:
-        c = harness.resolve(cell, bench)
-        setups[c["workload"]["traffic"]] = c
-    config = next(iter(setups.values()))["config"]
-    W, H = int(config["width"]), int(config["height"])
-    sub = bool(config["subsampling"])
-    calib = os.path.join(ROOT, config["calibration"])
-    engines = {m: StereoEngine(calib, W, H, subsampling=sub, device="cuda")
-               for m in setups}
-    ref = Reference(calib, W, H, sub, device="cuda")
-    out = {"program": {m: [] for m in setups}, "control": []}
-    try:
-        for seed in seeds:
-            ps = frames.pairs(config, next(iter(setups.values()))["traffic"],
-                              seed)
-            served = {}
-            for m, c in setups.items():
-                keeper = harness.Keeper(seed, c["traffic"]["points_share"])
-                c["driver"].warm(engines[m], ps, c["traffic"], config)
-                win = c["driver"].window(
-                    engines[m], ps, frames.Schedule(len(ps), seed),
-                    c["traffic"], config, seconds, keeper.keep, _NoTrace())
-                served[m] = (keeper.served,
-                             win["attempted"] - win["emitted"])
-            refs = {k: ref.frame(*ps[k]) for k in range(len(ps))}
-            for m, (kept, missing) in served.items():
-                r = dict(check.compare(kept, refs), seed=seed,
-                         missing=missing)
-                out["program"][m].append(r)
-                print(json.dumps({"config": config_name, "mix": m, **r}))
-    finally:
-        for e in engines.values():
-            e.close()
-    low = Reference(calib, W, H, sub, device="cuda", lowp=True)
+    out = {"program": {cell: [] for cell in cells}, "control": []}
+    for seed in seeds:
+        for cell in cells:
+            r = harness.run_cell(cell, seed, seconds, False,
+                                 time.perf_counter(), device=device,
+                                 overrides=overrides, log=log, bench=bench)
+            row = {n: c["value"] for n, c in r["checks"].items()}
+            row.update(seed=seed, correct=r["correct"])
+            out["program"][cell].append(row)
+            print(json.dumps({"config": config_name, "cell": cell, **row}),
+                  flush=True)
+    c = harness.resolve(cells[0], bench, overrides)
+    config = c["config"]
+    checks = check.modules(check.limits_of(config))
+    out["names"] = list(checks)
+    ref = Reference(os.path.join(ROOT, config["calibration"]),
+                    int(config["width"]), int(config["height"]),
+                    bool(config["subsampling"]), device=device)
     for seed in control_seeds:
-        ps = frames.pairs(config, next(iter(setups.values()))["traffic"],
-                          seed)
-        refs = {k: ref.frame(*ps[k]) for k in range(len(ps))}
-        kept = {k: [low.frame(*ps[k])] for k in range(len(ps))}
-        r = dict(check.compare(kept, refs), seed=seed)
+        ps = frames.pairs(config, c["traffic"], seed)
+        refs = {k: ref.frame(*p) for k, p in enumerate(ps)}
+        ctl = control_outputs(checks, ps, config, device)
+        kept = {k: [{n: m.keep(ctl[n][k], True) for n, m in checks.items()}]
+                for k in range(len(ps))}
+        r = dict(check.compare(kept, refs, ps, config, device, checks),
+                 seed=seed)
         out["control"].append(r)
-        print(json.dumps({"config": config_name, "control": "bfloat16", **r}))
+        print(json.dumps({"config": config_name, "control": True, **r}),
+              flush=True)
     return out
+
+
+def summarize(r: dict) -> dict:
+    """The lower readings (each cell's largest over its seeds, with
+    missing_frames) and the upper ones (the control's least)."""
+    names = r["names"]
+    return {"lower": {cell: {n: max(x[n] for x in rs)
+                             for n in names + ["missing_frames"]}
+                      for cell, rs in r["program"].items()},
+            "upper": {n: min(x[n] for x in r["control"]) for n in names}}
 
 
 def main(argv=None) -> int:
@@ -104,13 +113,8 @@ def main(argv=None) -> int:
         print("control: no CUDA device", file=sys.stderr)
         return 2
     r = readings(args.config, args.seeds, args.control_seeds, args.seconds)
-    summary = {"config": args.config,
-               "lower": {m: {n: max(x[n] for x in rs)
-                             for n in ("dmap_px", "points_rel")}
-                         for m, rs in r["program"].items()},
-               "upper": {n: min(x[n] for x in r["control"])
-                         for n in ("dmap_px", "points_rel")},
-               "seconds": time.perf_counter() - T_START}
+    summary = dict(summarize(r), config=args.config,
+                   seconds=time.perf_counter() - T_START)
     print(json.dumps({"summary": summary}), flush=True)
     return 0
 

@@ -1,6 +1,7 @@
 """The benchmark's one traffic generator: seeded stereo pairs of a textured
-synthetic scene with a known disparity (a frozen copy of the port's
-synthetic.stereo_pair), cycled as a traffic mix's data file says.
+synthetic scene with a known disparity (byte for byte the frames of the
+port's synthetic.stereo_pair, drawn here in one pass), cycled as a traffic
+mix's data file says.
 
 A traffic mix (traffic/<name>.json) names the entry point that serves it
 (drivers/<entry>.py) and its parameters; every mix draws its frames, and
@@ -39,16 +40,21 @@ def stereo_pair(width: int, height: int, seed: int) -> Pair:
     nearer surfaces drawn last, fresh texture where nothing lands."""
     rng = np.random.default_rng(seed)
     coarse = rng.integers(0, 256, (height // 4 + 1, width // 4 + 1))
-    coarse = np.kron(coarse, np.ones((4, 4)))[:height, :width]
+    coarse = np.repeat(np.repeat(coarse, 4, 0), 4, 1)[:height, :width]
     fine = rng.integers(0, 256, (height, width))
     left = (0.5 * coarse + 0.5 * fine).astype(np.uint8)
     disp = disparity_field(width, height)
     right = rng.integers(0, 256, (height, width)).astype(np.uint8)
-    for d in np.unique(disp):
-        vs, us = np.nonzero(disp == d)
-        x = us - d
-        ok = x >= 0
-        right[vs[ok], x[ok]] = left[vs[ok], us[ok]]
+    # every left pixel lands at u - d of its row; where several land on one
+    # right pixel, the nearest (largest d) is drawn, in one pass
+    v, u = np.indices((height, width))
+    ok = u >= disp
+    dst = (v * width + u - disp)[ok]
+    d = disp[ok]
+    top = np.full(height * width, -1, np.int32)
+    np.maximum.at(top, dst, d)
+    near = d == top[dst]
+    right.reshape(-1)[dst[near]] = left[ok][near]
     bgr = lambda g: np.repeat(g[..., None], 3, axis=-1)  # noqa: E731
     return bgr(left), bgr(right)
 

@@ -1,27 +1,39 @@
 """One run of one cell: set-up, the measured window, the traced stretch,
 the check against the plain reference, and the result line.
 
-Everything that belongs to one configuration, traffic mix or metric is
-found by name: configs/<config>.json (through BENCHMARK.json's "file"),
-traffic/<mix>.json, drivers/<entry>.py (the mix's "entry"), and
-metrics/<metric>.py for every metric BENCHMARK.json gives the cell.
+Everything that belongs to one configuration, traffic mix, reading or
+metric is found by name (lookup.py): configs/<config>.json (through
+BENCHMARK.json's "file"), traffic/<mix>.json, drivers/<entry>.py (the
+mix's "entry"), checks/<reading>.py for every reading the configuration's
+"check" names, and metrics/<metric>.py for every metric BENCHMARK.json
+gives the cell.
+
+A driver serves the object its build(config, calib_path, device) returns
+(one with close()), or the port's StereoEngine where it has no build.
+
+A metric file's read(rec) gets the run's record: what the driver's window
+returned (frames, window_s, latencies_s, ...), setup_s, traced, config
+and traffic (as resolved, with overrides), spans (the benchmark's
+wrappers, traced runs), trace (Tracer.summary(): busy_s, kernels, launch_calls,
+device_s_by_name, stage_device_s, ...), program (the program's own spans
+from the end of the warm-up to the end of the window, traced runs) and
+bounds (the kernels' least times, where the trace has K1-K4).
 """
 
 from __future__ import annotations
 
 import gc
-import importlib.util
 import json
 import os
 import sys
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
 from . import check, frames, roofline, trace
+from .lookup import HERE, find, load_module
 
-HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 # top-level module names that may not be loaded in a run, compared whole
 FORBIDDEN = ("jax", "jaxlib", "flax", "stereovision_tpu")
@@ -30,19 +42,6 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "stereovision_tpu")
 def load_json(path: str) -> dict:
     with open(path) as f:
         return json.load(f)
-
-
-def load_module(kind: str, name: str):
-    """depthbench/<kind>/<name>.py as a module (names may hold dots)."""
-    path = os.path.join(HERE, kind, name + ".py")
-    if not os.path.isfile(path):
-        raise LookupError("no %s named %r (%s)" % (kind, name, path))
-    spec = importlib.util.spec_from_file_location(
-        "depthbench_%s_%s" % (kind, name.replace(".", "_").replace("-", "_")),
-        path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def load_bench(later: bool = False) -> dict:
@@ -64,8 +63,11 @@ def load_bench(later: bool = False) -> dict:
     return bench
 
 
-def resolve(cell: str, bench: Optional[dict] = None) -> dict:
-    """A cell's configuration, traffic mix, driver and metrics by name."""
+def resolve(cell: str, bench: Optional[dict] = None,
+            overrides: Optional[dict] = None) -> dict:
+    """A cell's configuration, traffic mix, driver and metrics by name;
+    overrides: keys that replace the mix's (where it has them) or the
+    configuration's."""
     bench = bench or load_bench()
     cells = {w["name"]: w for w in bench["workloads"]}
     if cell not in cells:
@@ -73,7 +75,12 @@ def resolve(cell: str, bench: Optional[dict] = None) -> dict:
     w = cells[cell]
     cfg_entry = {c["name"]: c for c in bench["configs"]}[w["config"]]
     config = load_json(os.path.join(ROOT, cfg_entry["file"]))
-    traffic = load_json(os.path.join(HERE, "traffic", w["traffic"] + ".json"))
+    path = find("traffic", w["traffic"], ".json")
+    if path is None:
+        raise LookupError("no traffic mix named %r" % w["traffic"])
+    traffic = load_json(path)
+    for k, v in (overrides or {}).items():
+        (traffic if k in traffic else config)[k] = v
 
     def mine(m):
         return "workloads" not in m or cell in m["workloads"]
@@ -89,21 +96,35 @@ def forbidden_modules() -> List[str]:
 
 
 class Keeper:
-    """The served outputs kept for the check: every frame's display
-    disparity, and the cloud of each pair's first frame and of a share of
-    the others drawn from the seed."""
+    """The served outputs kept for the check: what each reading keeps of
+    every frame (check.kept), with the draw of whether a frame's cloud is
+    kept: each pair's first frame and a share of the others, drawn from the
+    seed."""
 
-    def __init__(self, seed: int, share: float):
+    def __init__(self, seed: int, share: float, checks: dict):
         self.rng = np.random.default_rng([seed, 7])
         self.share = float(share)
+        self.checks = checks
         self.served: Dict[int, List[dict]] = {}
 
-    def keep(self, k: int, out: dict) -> None:
+    def keep(self, k: int, out) -> None:
         """out: a served frame of pair k."""
         outs = self.served.setdefault(k, [])
         cloud = not outs or self.rng.random() < self.share
-        outs.append({"dmap": out["dmap"],
-                     "points": out["points"] if cloud else None})
+        outs.append(check.kept(out, self.checks, cloud))
+
+
+def build_served(driver, config: dict, device: str):
+    """The object the cell's driver serves: what its build(config,
+    calib_path, device) returns, else the port's StereoEngine for the
+    configuration's rig, size and subsampling."""
+    calib = os.path.join(ROOT, config["calibration"])
+    if hasattr(driver, "build"):
+        return driver.build(config, calib, device)
+    from stereovision_tpu_torch.engine import StereoEngine
+    return StereoEngine(calib, int(config["width"]), int(config["height"]),
+                        subsampling=bool(config["subsampling"]),
+                        device=device)
 
 
 def read_metrics(specs, rec: dict) -> Dict[str, dict]:
@@ -120,32 +141,36 @@ def read_metrics(specs, rec: dict) -> Dict[str, dict]:
 def run_cell(cell: str, seed: int, seconds: float, traced: bool,
              t_start: float, device: str = "cuda",
              overrides: Optional[dict] = None, log=None,
-             bench: Optional[dict] = None) -> dict:
+             bench: Optional[dict] = None, program: Optional[bool] = None,
+             on_record: Optional[Callable[[dict], None]] = None) -> dict:
     """Run `cell` once and return its result (the last line's object).
-    overrides: keys that replace the configuration's or the mix's, and
+    overrides: keys that replace the configuration's or the mix's;
     bench: a benchmark description in place of BENCHMARK.json (the
     harness's tests run small frames on the CPU, and the cells of
-    later.json, with them)."""
+    later.json, with them); program: record the program's
+    own spans from the end of the warm-up to the end of the window (by
+    default in traced runs only); on_record: called with the record that
+    the metrics read."""
     import torch
-    from stereovision_tpu_torch.engine import StereoEngine
+    from stereovision_tpu_torch import profiling as P
 
     from .reference.pipeline import Reference
     log = log or (lambda s: print(s, file=sys.stderr, flush=True))
-    c = resolve(cell, bench)
+    program = traced if program is None else program
+    c = resolve(cell, bench, overrides)
     config, traffic, driver = c["config"], c["traffic"], c["driver"]
-    for k, v in (overrides or {}).items():
-        (traffic if k in traffic else config)[k] = v
     cuda = device == "cuda"
     calib = os.path.join(ROOT, config["calibration"])
     W, H, sub = int(config["width"]), int(config["height"]), \
         bool(config["subsampling"])
     limits = check.limits_of(config)
+    checks = check.modules(limits)
 
-    # ---- set-up: frames, engine, warm-up ------------------------------
+    # ---- set-up: frames, the served object, warm-up ---------------------
     marks = [("imports", time.perf_counter())]
     ps = frames.pairs(config, traffic, seed)
     marks.append(("frames", time.perf_counter()))
-    engine = StereoEngine(calib, W, H, subsampling=sub, device=device)
+    engine = build_served(driver, config, device)
     marks.append(("engine", time.perf_counter()))
     driver.warm(engine, ps, traffic, config)
     if cuda:
@@ -155,17 +180,25 @@ def run_cell(cell: str, seed: int, seconds: float, traced: bool,
     tracer = trace.Tracer(traced, cuda, int(traffic["trace_start"]),
                           int(traffic["trace_frames"]))
     tracer.warm()
-    keeper = Keeper(seed, traffic["points_share"])
+    if program:
+        P.trace_drain()
+        P.trace_start()
+    keeper = Keeper(seed, traffic["points_share"], checks)
     setup_s = time.perf_counter() - t_start
     marks.append(("profiler", time.perf_counter()))
     log("set-up %.3f s: %s" % (setup_s, ", ".join(
         "%s by %.3f" % (n, t - t_start) for n, t in marks)))
 
     # ---- the window ---------------------------------------------------
-    win = driver.window(engine, ps, frames.Schedule(len(ps), seed),
-                        traffic, config, seconds, keeper.keep, tracer)
-    if cuda:
-        torch.cuda.synchronize()
+    try:
+        win = driver.window(engine, ps, frames.Schedule(len(ps), seed),
+                            traffic, config, seconds, keeper.keep, tracer)
+        if cuda:
+            torch.cuda.synchronize()
+    finally:
+        if program:
+            P.trace_stop()
+    drained = P.trace_drain()["spans"] if program else None
     memory_peak = torch.cuda.max_memory_allocated() if cuda else 0
     summary = tracer.summary()
     engine.close()
@@ -185,17 +218,21 @@ def run_cell(cell: str, seed: int, seconds: float, traced: bool,
     t_ref = time.perf_counter()
     ref = Reference(calib, W, H, sub, device=device)
     refs = {k: ref.frame(*ps[k], keep=traced) for k in keeper.served}
-    readings = check.compare(keeper.served, refs)
+    readings = check.compare(keeper.served, refs, ps, config, device,
+                             checks)
     missing = win["attempted"] - win["emitted"]
     correct, rows = check.verdict(readings, limits, missing)
-    log("reference: %d pairs in %.3f s; %d frames and %d clouds compared"
-        % (len(refs), time.perf_counter() - t_ref, readings["frames"],
-           readings["clouds"]))
+    log("reference: %d pairs in %.3f s; %d frames compared; kept by "
+        "reading: %s" % (len(refs), time.perf_counter() - t_ref,
+                         readings["frames"], ", ".join(
+                             "%s %d" % kv for kv in readings["kept"].items())))
 
     # ---- metrics ------------------------------------------------------
-    rec = {"setup_s": setup_s, "traced": traced, **win,
-           "spans": {k: list(v) for k, v in spans.items()},
-           "trace": summary}
+    rec = {"setup_s": setup_s, "traced": traced, **win, "config": config,
+           "traffic": traffic,
+           "spans": {k: list(v) for k, v in spans.items()}, "trace": summary}
+    if drained is not None:
+        rec["program"] = {"spans": drained, "full": len(drained) >= P.RING}
     loads = [refs[k]["load"] for k in sorted(refs)]
     log("host middle's load (reference), by pair: support points %s (cap "
         "%d; thinned from %s), triangles left %s, right %s"
@@ -208,13 +245,18 @@ def run_cell(cell: str, seed: int, seconds: float, traced: bool,
         rec["bounds"] = roofline.call_bounds(ref.p, works, rec["batch"])
         log("matching candidates (reference), by pair: %s" % [
             (w["K1l"][1] + w["K1r"][1]) // 32 for w in works])
+    if on_record is not None:
+        on_record(rec)
     metrics = read_metrics(c["per_layer"] if traced else c["end_to_end"],
                            rec)
     if "latencies_s" in win:
         lat = np.asarray(win["latencies_s"]) * 1e3
-        log("latency samples: %d frames; median %.3f ms; mean by thirds of "
-            "the window %s ms" % (lat.size, float(np.median(lat)), " ".join(
-                "%.3f" % t.mean() for t in np.array_split(lat, 3) if t.size)))
+        log("latency samples: %d frames; median %.3f ms; p95 %.3f ms; mean "
+            "by thirds of the window %s ms" % (
+                lat.size, float(np.median(lat)),
+                float(np.percentile(lat, 95)) if lat.size else float("nan"),
+                " ".join("%.3f" % t.mean()
+                         for t in np.array_split(lat, 3) if t.size)))
     if "emitted_at_s" in win:
         at = np.asarray(win["emitted_at_s"])
         log("frames emitted by thirds of the window: %s" % " ".join(
@@ -229,9 +271,10 @@ def run_cell(cell: str, seed: int, seconds: float, traced: bool,
     if traced:
         dev["busy_s"] = summary.get("busy_s", 0.0)
         dev["window_s"] = summary.get("window_s", 0.0)
-        log("trace: %d frames, launches %s, kernels %s"
-            % (summary.get("frames", 0), summary.get("launch_calls"),
-               summary.get("kernels")))
+        log("trace: %d frames, launches %s, kernels %s; device s by program "
+            "span %s" % (summary.get("frames", 0), summary.get("launch_calls"),
+                         summary.get("kernels"),
+                         summary.get("stage_device_s")))
         result["breakdown"] = {"device_ops": summary.get("device_ops", []),
                                "idle_gaps": summary.get("idle_gaps", [])}
     # inf (a cloud whose invalid points moved) as the largest float

@@ -31,6 +31,16 @@ import sys  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CACHE = os.path.join(ROOT, "depthbench", ".cache")
+# Python's bytecode of every module (torch's ~2,100 files among them) in a
+# fixed place inside the checkout, written by the first run and read by the
+# rest: where the installation ships no .pyc and PYTHONDONTWRITEBYTECODE is
+# set, each run would otherwise compile torch from source in its set-up.
+# Set before numpy and torch load; the host middle's pool workers inherit
+# it.
+sys.pycache_prefix = os.path.join(CACHE, "pyc")
+sys.dont_write_bytecode = False
+os.environ["PYTHONPYCACHEPREFIX"] = sys.pycache_prefix
+os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
 # one thread for every CPU math library, set before numpy and torch load
 # (the host middle's pool workers inherit it): their idle pools spun on
 # an 8-core H100 host, ~1 core's worth beside the main thread
@@ -38,7 +48,8 @@ for _var in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS"):
     os.environ[_var] = "1"
 
 
-def main(argv=None) -> int:
+def main(argv=None, **kw) -> int:
+    """kw: further keywords of harness.run_cell (program_spans.py's)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seed", type=int, required=True)
@@ -63,7 +74,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     result = harness.run_cell(args.workload, args.seed, args.seconds,
-                              bool(args.trace), T_START)
+                              bool(args.trace), T_START, **kw)
     bad = harness.forbidden_modules()
     if bad:
         print("depthbench: loaded " + ", ".join(bad), file=sys.stderr)

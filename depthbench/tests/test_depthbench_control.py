@@ -19,7 +19,7 @@ import time
 import pytest
 import torch
 
-from depthbench import check, frames, harness
+from depthbench import check, control, frames, harness
 from depthbench.reference.pipeline import Reference
 
 ROOT = harness.ROOT
@@ -42,20 +42,28 @@ def run(cell, traced=False):
 @pytest.mark.parametrize("sub", [False, True], ids=["full", "sub"])
 def test_control_fails(sub):
     name = "kitti_sub" if sub else "kitti_full"
-    limits = check.limits_of(harness.load_json(os.path.join(
-        ROOT, "depthbench", "configs", name + ".json")))
+    config = harness.load_json(os.path.join(ROOT, "depthbench", "configs",
+                                            name + ".json"))
+    config.update(width=160, height=120)
+    limits = check.limits_of(config)
+    checks = check.modules(limits)
     ref = Reference(CALIB, 160, 120, sub)
-    low = Reference(CALIB, 160, 120, sub, lowp=True)
     ps = frames.pairs({"width": 160, "height": 120}, {"pairs": 4}, 31)
     refs = {k: ref.frame(*p) for k, p in enumerate(ps)}
-    r = check.compare({k: [low.frame(*p)] for k, p in enumerate(ps)}, refs)
+
+    def compare(outs):
+        served = {k: [{n: m.keep(outs[n][k], True)
+                       for n, m in checks.items()}] for k in range(len(ps))}
+        return check.compare(served, refs, ps, config, "cpu", checks)
+    # the control as control.py computes it: the stereo readings have no
+    # control of their own, so both read the reference in bfloat16
+    r = compare(control.control_outputs(checks, ps, config, "cpu"))
     ok, rows = check.verdict(r, limits, 0)
     assert not ok
     assert r["points_rel"] > limits["points_rel"]
     # and the reference against itself passes
-    same = check.compare({k: [ref.frame(*p)] for k, p in enumerate(ps)},
-                         refs)
-    assert check.verdict(same, limits, 0)[0]
+    mine = {k: ref.frame(*p) for k, p in enumerate(ps)}
+    assert check.verdict(compare({n: mine for n in checks}), limits, 0)[0]
 
 
 def _stale(monkeypatch):

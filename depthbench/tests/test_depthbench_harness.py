@@ -112,6 +112,24 @@ def test_every_reader_and_mix_file_is_used_or_kept_for_later():
     assert {w["traffic"] for w in BENCH["workloads"]} <= mixes
 
 
+def test_frame_tail_leaves_out_the_profiled_frames():
+    """frame_ms_p95.live: the 95th percentile of the window's latencies
+    without the frames that the profiler traced (from the mix's
+    trace_start, as many as the trace holds); every frame where nothing
+    was traced; nothing where there is no latency."""
+    read = harness.load_module("metrics", "frame_ms_p95.live").read
+    lat = [0.010 + 0.001 * (i % 20) for i in range(100)]
+    slow = lat[:4] + [5.0] * 16 + lat[20:]
+    rec = {"latencies_s": slow, "traffic": {"trace_start": 4},
+           "trace": {"frames": 16}}
+    assert read(rec) == pytest.approx(
+        1e3 * np.percentile(lat[:4] + lat[20:], 95))
+    assert read(dict(rec, trace={})) == pytest.approx(
+        1e3 * np.percentile(slow, 95))
+    assert read(dict(rec, trace={})) > 1e3
+    assert read({"latencies_s": [], "trace": {}}) is None
+
+
 def test_unknown_names_raise():
     with pytest.raises(LookupError):
         harness.resolve("kitti_full.nothing")

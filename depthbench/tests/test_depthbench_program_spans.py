@@ -1,6 +1,7 @@
-"""program_spans.py: device time by program stage on hand-made profiler
-events, the readings of hand-made spans, and a CPU run of the live cell
-with the program's spans recorded."""
+"""program_spans.py and what it reads: device time by program stage
+(trace.stage_device_s) on hand-made profiler events, the readings of a
+hand-made record, and a CPU run of the live cell with the program's spans
+recorded by the harness."""
 
 import time
 from types import SimpleNamespace as NS
@@ -47,7 +48,7 @@ def test_stage_device_s_by_correlation_id():
         _ev("orphan_kernel", 1, 20, 24),
         _ev("svtt.stage_b", 1, 200, 400, user=True),
     ]
-    got, linked, ops = program_spans.stage_device_s(events)
+    got, linked, ops = trace.stage_device_s(events)
     assert (linked, ops) == (5, 6)
     assert got == pytest.approx({"svtt.stage_a": 44e-6,
                                  "svtt.stage_b": 10e-6,
@@ -55,8 +56,9 @@ def test_stage_device_s_by_correlation_id():
 
 
 def test_readings_of_hand_made_spans():
+    from stereovision_tpu_torch.profiling import Span
     ms = 1_000_000
-    spans = [
+    spans = [Span(*s) for s in [
         ("svtt.frame", 0, None, 1, 0, 100 * ms, {"entry": "e"}, 0),
         ("svtt.host_mid", 0, 0, 1, 0, 60 * ms,
          {"support": 9, "native": 1}, 1),
@@ -68,12 +70,15 @@ def test_readings_of_hand_made_spans():
         ("svtt.host_mid", 1, 6, 1, 0, 40 * ms,
          {"support": 11, "native": 1}, 7),
         ("svtt.host_mid.filters", 1, 7, 1, 0, 30 * ms, {}, 8),
-    ]
-    r = program_spans.readings(spans, 2, {"svtt.stage_a": 0.001,
-                                          "svtt.stage_b": 0.004,
-                                          "svtt.reproject": 0.002,
-                                          "svtt.fetch_cloud": 0.001,
-                                          "": 0.002}, 0.009)
+    ]]
+    rec = {"program": {"spans": spans, "full": False}, "latencies_s": [1],
+           "trace": {"frames": 2, "busy_s": 0.009,
+                     "stage_device_s": {"svtt.stage_a": 0.001,
+                                        "svtt.stage_b": 0.004,
+                                        "svtt.reproject": 0.002,
+                                        "svtt.fetch_cloud": 0.001,
+                                        "": 0.002}}}
+    r = program_spans.readings(rec)
     assert r["frames"] == 2
     assert r["host_filters_ms"] == pytest.approx(20.0)
     assert r["host_delaunay_ms"] == pytest.approx(5.0)
@@ -84,28 +89,36 @@ def test_readings_of_hand_made_spans():
     assert r["stage_a_device_ms"] == pytest.approx(0.5)
     assert r["stage_b_device_ms"] == pytest.approx(3.0)
     assert r["staged_share_of_ops"] == pytest.approx(0.8)
-    assert "stage_device_s" not in program_spans.readings(spans, 0, {}, 0.0)
+    rec["trace"] = {}
+    r = program_spans.readings(rec)
+    assert "stage_device_s" not in r and "stage_a_device_ms" not in r
+    # a full ring leaves its oldest frame out
+    rec["program"]["full"] = True
+    assert program_spans.readings(rec)["host_filters_ms"] == \
+        pytest.approx(30.0)
 
 
 def test_recorded_run_of_the_live_cell_on_the_cpu():
-    """The live cell, traced, small, on the CPU with the program's spans
-    recorded: the host middle's split is read, its parts lie inside the
-    host middle, run.py's result is unchanged in form; after the block the
-    harness is its own again and recording is off."""
+    """The live cell, traced, small, on the CPU: the harness records the
+    program's spans into the record; the host middle's split is read, its
+    parts lie inside the host middle, run.py's result is unchanged in form;
+    after the run recording is off and the harness's functions are its
+    own."""
     from stereovision_tpu_torch import profiling as P
     warm, summarize = trace.Tracer.warm, trace.summarize
     bench = harness.load_bench(later=True)
-    with program_spans.recorded() as box:
-        r = harness.run_cell("kitti_full.live", 2**33 + 11, 1.5, True,
-                             time.perf_counter(), device="cpu",
-                             overrides=dict(SMALL), log=lambda s: None,
-                             bench=bench)
+    box = {}
+    r = harness.run_cell("kitti_full.live", 2**33 + 11, 1.5, True,
+                         time.perf_counter(), device="cpu",
+                         overrides=dict(SMALL), log=lambda s: None,
+                         bench=bench, on_record=lambda rec: box.update(
+                             program=program_spans.readings(rec)))
     assert r["correct"] is True
     assert (trace.Tracer.warm, trace.summarize) == (warm, summarize)
     assert not P.recording()
     prog = box["program"]
     assert prog["frames"] >= SMALL["trace_start"] + SMALL["trace_frames"]
-    parts = sum(prog[k] for k in program_spans.HOST_PARTS.values())
+    parts = sum(prog[n[:-len(".live")]] for n in program_spans.READERS[:4])
     assert 0 < parts <= prog["host_mid_ms"]
     assert prog["host_mid_counts"]["native"] in ([0], [1])
     assert prog["frame_cover"][0] >= 0.9

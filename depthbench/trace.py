@@ -5,8 +5,10 @@ Spans wrap methods of the engine's instances (stage A, host middle, stage
 B, reprojection) in torch.profiler.record_function and a host clock; they
 are installed in traced runs only.  The profiler's reading follows
 chip_smoke.py's profile(): the union of the device's busy intervals against
-the host's wall time, device seconds by kernel, and the runtime's launch
-calls (every CPU event whose name holds "Launch").
+the host's wall time, device seconds by kernel and by every op's name, the
+runtime's launch calls (every CPU event whose name holds "Launch"), and
+device seconds by the program's own spans ("svtt.*", recorded by the
+profiler where the program's span recording is on).
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 import functools
 import re
 import time
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -29,6 +31,9 @@ CALL_KERNEL = {"K1": "match_keys_kernel", "K2": "support_scan_kernel",
 SPANS = {"elas": ("stage_support", "stage_support_batched", "host_mid",
                   "host_mid_parallel", "stage_dense"),
          "engine": ("reproject",)}
+# the CUDA runtime calls that launch device work (kernels, copies, sets,
+# graph replays): a device op's correlation id names one of them
+RUNTIME = ("cuda", "cu")
 SHORT_GAP_S = 50e-6     # idle gaps below this are summed as one entry
 TOP = 10
 
@@ -39,13 +44,18 @@ def short_name(name: str) -> str:
                     .removeprefix("void "))[0].strip()[:60]
 
 
-def install_spans(engine) -> Dict[str, List[float]]:
-    """Wrap the engine's layer methods (instance attributes shadow the
-    class's); returns span name -> list of host seconds, filled as they
-    run (threads append to their own list entry; list.append is
-    atomic)."""
+def install_spans(served) -> Dict[str, List[float]]:
+    """Wrap the layer methods of the stereo engine that the served object
+    is, or holds as .engine (instance attributes shadow the class's);
+    returns span name -> list of host seconds, filled as they run (threads
+    append to their own list entry; list.append is atomic).  A served
+    object with no such engine gets no spans."""
     import torch
+    engine = served if hasattr(served, "elas") else \
+        getattr(served, "engine", None)
     spans: Dict[str, List[float]] = {}
+    if engine is None:
+        return spans
     for owner, names in (("elas", SPANS["elas"]), ("engine", SPANS["engine"])):
         obj = engine.elas if owner == "elas" else engine
         for name in names:
@@ -131,27 +141,30 @@ class Tracer:
 
 def summarize(events, wall_s: float, frames: int) -> dict:
     """busy_s (union of device intervals), kernels (K1-K4 -> [calls,
-    device seconds]), launch_calls, device_ops and idle_gaps (the ten
-    largest, [name, seconds]), frames and window_s."""
+    device seconds]), launch_calls, device_s_by_name (every device op's
+    seconds by short name), device_ops and idle_gaps (the ten largest,
+    [name, seconds]), stage_device_s and ops_linked (stage_device_s()),
+    frames and window_s."""
     from torch.autograd import DeviceType
     dev, cpu = [], []
     launches = 0
     for e in events:
         tr = e.time_range
         if e.device_type == DeviceType.CUDA:
-            # the device-side copies of record_function ranges are no work
-            if not (getattr(e, "is_user_annotation", False)
-                    or e.name.startswith("depthbench.")):
+            if not _annotation(e):
                 dev.append((tr.start, tr.end, e.name))
         elif e.device_type == DeviceType.CPU:
             if "Launch" in e.name:
                 launches += 1
             cpu.append((tr.start, tr.end, e.name))
-    out = {"frames": frames, "window_s": wall_s, "launch_calls": launches}
+    by_stage, linked, n_ops = stage_device_s(events)
+    out = {"frames": frames, "window_s": wall_s, "launch_calls": launches,
+           "stage_device_s": by_stage, "ops_linked": [linked, n_ops],
+           "device_s_by_name": {}}
     if not dev:
         return out
     dev.sort()
-    busy, end, by_name = 0.0, float("-inf"), {}
+    busy, end, by_name = 0.0, float("-inf"), out["device_s_by_name"]
     kernels = {k: [0, 0.0] for k in KERNEL_NAMES}
     intervals = []
     for s, e, name in dev:
@@ -175,6 +188,52 @@ def summarize(events, wall_s: float, frames: int) -> dict:
                    by_name.items(), key=lambda kv: -kv[1])[:TOP]],
                idle_gaps=idle_gaps(intervals, cpu))
     return out
+
+
+def _annotation(e) -> bool:
+    """A device-side copy of a record_function range (the benchmark's
+    "depthbench.*" spans, the program's "svtt.*"): no work."""
+    return getattr(e, "is_user_annotation", False) or \
+        e.name.startswith(("depthbench.", "svtt."))
+
+
+def stage_device_s(events) -> Tuple[Dict[str, float], int, int]:
+    """Device seconds by program span: each device op (kernels and copies;
+    not the device copies of record_function ranges) goes to the innermost
+    "svtt.*" CPU event covering the runtime call that launched it, found by
+    correlation id, on that call's thread; an op with no such call goes to
+    the innermost span covering its own start.  "" holds the ops under no
+    span.  -> (seconds by span, ops linked to their call, all ops)."""
+    from torch.autograd import DeviceType
+    spans, calls, ops = [], {}, []
+    for e in events:
+        tr = e.time_range
+        if e.device_type == DeviceType.CPU:
+            if e.name.startswith("svtt."):
+                spans.append((tr.start, tr.end, e.name, e.thread))
+            elif e.name.startswith(RUNTIME):
+                calls[e.id] = (tr.start, e.thread)
+        elif e.device_type == DeviceType.CUDA and not _annotation(e):
+            ops.append(e)
+    s0 = np.asarray([x[0] for x in spans], np.float64)
+    s1 = np.asarray([x[1] for x in spans], np.float64)
+    th = np.asarray([x[3] for x in spans], np.int64)
+    out: Dict[str, float] = {}
+    linked = 0
+    for e in ops:
+        call = calls.get(e.id) or calls.get(
+            getattr(e, "linked_correlation_id", 0))
+        linked += call is not None
+        at, thread = call if call is not None else (e.time_range.start, None)
+        cover = (s0 <= at) & (at <= s1)
+        if thread is not None:
+            cover &= th == thread
+        idx = np.nonzero(cover)[0]
+        # the innermost: the shortest, the first of equals
+        name = spans[idx[np.argmin((s1 - s0)[idx])]][2] if idx.size else ""
+        out[name] = out.get(name, 0.0) + \
+            (e.time_range.end - e.time_range.start) / 1e6
+    return out, linked, len(ops)
 
 
 def idle_gaps(intervals, cpu) -> list:
