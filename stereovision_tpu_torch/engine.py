@@ -558,7 +558,10 @@ class StereoVision:
     plus `device`, and generatePointCloud(left, right) -> (width*height, 3)
     float64 points.  objectTracking=True detects on every left frame and
     tracks the boxes; self.last["objects"] holds the frame's detections and
-    the tracker's predicted boxes."""
+    the tracker's predicted boxes, self.last["rows"] the detector's decoded
+    rows of the frame ((rows, 5 + classes) float32 NumPy).  Spans: the roots
+    "svtt.detect" (the detector's spans inside) and "svtt.track" (counts
+    boxes, predicted), in the frame id of process_frame's "svtt.frame"."""
 
     def __init__(self, so_lib_path=None, width=1242, height=375,
                  defaultCalibFile=True, objectTracking=False, graphics=False,
@@ -597,9 +600,17 @@ class StereoVision:
         res = self.engine.process_frame(left, right)
         self.last = res
         if self.objectTracking and self.detector is not None:
-            dets = self.detector.detect(left)
-            preds = self.tracker.get_predicted_boxes()
-            self.tracker.append(dets)
+            # the frame's detection and tracking, each a root in the frame
+            # of process_frame's "svtt.frame"
+            fid = P.last_frame()
+            with P.root("svtt.detect", fid):
+                rows = self.detector.rows([left])
+                dets = self.detector.decode(rows, [left.shape[:2]])[0]
+            with P.root("svtt.track", fid) as sp:
+                preds = self.tracker.get_predicted_boxes()
+                self.tracker.append(dets)
+                sp.add(boxes=len(dets), predicted=len(preds))
+            self.last["rows"] = rows[0]
             self.last["objects"] = dets + preds
         print(frame_line(res))
         return res["points"].astype(np.float64)

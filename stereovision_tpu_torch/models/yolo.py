@@ -1,5 +1,5 @@
-"""Darknet-family object detector (YOLOv4-tiny) in PyTorch (counterpart of
-stereovision_tpu/models/yolo.py).
+"""Darknet-family object detector (YOLOv4-tiny and YOLOv4) in PyTorch
+(counterpart of stereovision_tpu/models/yolo.py).
 
 The reference's OpenCV-DNN darknet wrapper
 (src/common_includes/yolo/{yolo.hpp,detector.cpp}) as a generic darknet
@@ -9,10 +9,23 @@ the reference's pre- and post-processing: 608x608 bilinear resize,
 BGR->RGB, /255 (detector.cpp:31), per-class score threshold 0.5 and
 per-class greedy NMS at IoU 0.4 on integer boxes (detector.cpp:42-66).
 
+The sections implemented are [convolutional] (leaky, mish or linear),
+[maxpool], [upsample], [route] (with groups), [shortcut] (linear) and
+[yolo]; a cfg with any other section type or activation raises ValueError
+when the model is built.  Built in: yolov4-tiny and YOLOv4 (CSPDarknet53,
+SPP, PANet, three heads), both also packaged under data/yolo/.
+
 The convolutions are F.conv2d, run with cuDNN's TF32 off so that the card
 computes them in float32 as the JAX package does.  Thresholding and NMS run
 on the host in NumPy, the same code as the JAX package's.  The detector
 runs on the card unless device="cpu".
+
+Spans (profiling.py, while tracing is on): rows() records
+"svtt.detect.preprocess" (BGR->RGB, the resize, the upload and /255),
+"svtt.detect.forward" (counts convs, shortcuts, routes) and
+"svtt.detect.fetch" (count bytes); decode() records "svtt.detect.decode"
+(counts candidates, the rows at or above the threshold in any class, and
+detections).
 """
 
 from __future__ import annotations
@@ -25,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import profiling as P
 from ..device import resolve_device
 from ..io.kitti import resize_float
 from ..transfer import fetch, upload
@@ -49,6 +63,12 @@ COCO_CLASSES = (
 
 DATA_DIR = osp.join(osp.dirname(osp.dirname(osp.abspath(__file__))), "data",
                     "yolo")
+
+# what forward implements: section types after [net], and activations of
+# [convolutional] (darknet's default is logistic); a [shortcut] only linear
+LAYER_TYPES = ("convolutional", "maxpool", "upsample", "route", "shortcut",
+               "yolo")
+ACTIVATIONS = ("leaky", "mish", "linear")
 
 
 # ---------------------------------------------------------------------------
@@ -112,9 +132,110 @@ def builtin_yolov4_tiny_cfg() -> List[Dict]:
                conv(255, k=1, act="linear", bn=0), yolo("1,2,3")])
 
 
+YOLOV4_ANCHORS = "12,16, 19,36, 40,28, 36,75, 76,55, 72,146, 142,110, " \
+    "192,243, 459,401"
+
+
+def builtin_yolov4_cfg() -> List[Dict]:
+    """YOLOv4 (Bochkovskiy, Wang and Liao, arXiv:2004.10934) as cfg
+    sections: darknet's cfg/yolov4.cfg, its 162 layers at 608x608 without
+    the training keys.  CSPDarknet53 with Mish (layers 0-104), SPP
+    (105-113), PANet (114-136 up, 140-159 down) with leaky, and three heads
+    (yolo layers 139, 150, 161 on grids of stride 8, 16, 32)."""
+    def conv(f, k=1, s=1, act="leaky"):
+        return {"type": "convolutional", "batch_normalize": "1",
+                "filters": str(f), "size": str(k), "stride": str(s),
+                "pad": "1", "activation": act}
+
+    def route(*layers):
+        return {"type": "route", "layers": ",".join(str(x) for x in layers)}
+
+    def mish(f, k=1, s=1):
+        return conv(f, k, s, "mish")
+
+    shortcut = {"type": "shortcut", "from": "-3", "activation": "linear"}
+
+    def csp(c, n, first=False):
+        """A CSP stage: conv 2c 3x3/2, a split conv c and a route -2 conv
+        c, n residual blocks, conv c, the route of the last layer and the
+        split conv, conv 2c (the first stage: 64 wide throughout)."""
+        w = 2 * c if first else c
+        block = [mish(c), mish(w, 3), shortcut]
+        return ([mish(2 * c, 3, 2), mish(w), route(-2), mish(w)]
+                + block * n
+                + [mish(w), route(-1, -(3 * n + 4)), mish(2 * c)])
+
+    def head(mask, sxy):
+        return [{"type": "convolutional", "size": "1", "stride": "1",
+                 "pad": "1", "filters": "255", "activation": "linear"},
+                {"type": "yolo", "mask": mask, "anchors": YOLOV4_ANCHORS,
+                 "classes": "80", "num": "9", "scale_x_y": sxy}]
+
+    def five(c):
+        return [conv(c), conv(2 * c, 3), conv(c), conv(2 * c, 3), conv(c)]
+
+    maxpool = [{"type": "maxpool", "stride": "1", "size": str(k)}
+               for k in (5, 9, 13)]
+    net = [{"type": "net", "width": "608", "height": "608", "channels": "3"}]
+    backbone = ([mish(32, 3)] + csp(32, 1, first=True) + csp(64, 2)
+                + csp(128, 8) + csp(256, 8) + csp(512, 4))
+    spp = ([conv(512), conv(1024, 3), conv(512), maxpool[0], route(-2),
+            maxpool[1], route(-4), maxpool[2], route(-1, -3, -5, -6)])
+    up = ([conv(512), conv(1024, 3), conv(512), conv(256),
+           {"type": "upsample", "stride": "2"}, route(85), conv(256),
+           route(-1, -3)] + five(256)
+          + [conv(128), {"type": "upsample", "stride": "2"}, route(54),
+             conv(128), route(-1, -3)] + five(128))
+    down = ([conv(256, 3)] + head("0,1,2", "1.2")
+            + [route(-4), conv(256, 3, 2), route(-1, -16)] + five(256)
+            + [conv(512, 3)] + head("3,4,5", "1.1")
+            + [route(-4), conv(512, 3, 2), route(-1, -37)] + five(512)
+            + [conv(1024, 3)] + head("6,7,8", "1.05"))
+    return [dict(sec) for sec in net + backbone + spp + up + down]
+
+
+def write_darknet_cfg(path: str, sections: List[Dict]) -> None:
+    """Cfg sections as a darknet .cfg file that parse_darknet_cfg reads
+    back to the same sections."""
+    with open(path, "w") as f:
+        f.write("\n".join("[%s]\n" % sec["type"] + "".join(
+            "%s=%s\n" % kv for kv in sec.items() if kv[0] != "type")
+            for sec in sections))
+
+
 def _refs(l: Dict, i: int) -> List[int]:
-    refs = [int(x) for x in l["layers"].split(",")]
+    """The absolute indices of a [route]'s layers or a [shortcut]'s
+    from."""
+    refs = [int(x) for x in l["layers" if l["type"] == "route"
+                             else "from"].split(",")]
     return [r if r >= 0 else i + r for r in refs]
+
+
+def _check_layers(layers: List[Dict], chans: List[int]) -> None:
+    """ValueError for a section or an activation that forward does not
+    implement, or a shortcut of layers with different channels."""
+    for i, l in enumerate(layers):
+        t = l["type"]
+        if t not in LAYER_TYPES:
+            raise ValueError("layer %d: darknet section [%s] is not "
+                             "implemented" % (i, t))
+        act = l.get("activation", "logistic" if t == "convolutional"
+                    else "linear")
+        if (t == "convolutional" and act not in ACTIVATIONS
+                or t == "shortcut" and act != "linear"):
+            raise ValueError("layer %d: activation %r of [%s] is not "
+                             "implemented" % (i, act, t))
+        if t == "convolutional" and int(l.get("groups", 1)) != 1:
+            raise ValueError("layer %d: grouped [convolutional] is not "
+                             "implemented" % i)
+        if t == "shortcut":
+            src, = _refs(l, i)
+            if "weights_type" in l or chans[src] != chans[i - 1]:
+                raise ValueError("layer %d: [shortcut] of layers %d and %d "
+                                 "(%d, %d channels, weights %s) is not "
+                                 "implemented" % (i, src, i - 1, chans[src],
+                                                  chans[i - 1],
+                                                  l.get("weights_type")))
 
 
 # ---------------------------------------------------------------------------
@@ -132,6 +253,11 @@ class YoloV4Tiny(nn.Module):
         self.layers = sections[1:]
         self.size = int(self.net_cfg.get("width", 608))
         self.class_names = list(class_names)
+        _check_layers(self.layers, self._layer_channels())
+        types = [l["type"] for l in self.layers]
+        self.counts = {"convs": types.count("convolutional"),
+                       "shortcuts": types.count("shortcut"),
+                       "routes": types.count("route")}
         self._init_random(seed, resolve_device(device))
 
     @property
@@ -172,7 +298,7 @@ class YoloV4Tiny(nn.Module):
                 c = sum(chans[r] for r in _refs(l, i))
                 if "groups" in l:
                     c //= int(l["groups"])
-            # maxpool/upsample/yolo keep channels
+            # maxpool/upsample/shortcut/yolo keep channels
             chans.append(c)
         return chans
 
@@ -266,7 +392,7 @@ class YoloV4Tiny(nn.Module):
                 act = l["activation"]
                 if act == "leaky":
                     x = torch.where(x > 0, x, 0.1 * x)
-                elif act in ("mish", "swish", "silu"):
+                elif act == "mish":
                     # jax.nn.softplus is logaddexp(x, 0); F.softplus
                     # switches to x above its threshold
                     x = x * torch.tanh(torch.logaddexp(x, torch.zeros_like(x)))
@@ -275,6 +401,8 @@ class YoloV4Tiny(nn.Module):
             elif t == "upsample":
                 s = int(l["stride"])
                 x = x.repeat_interleave(s, dim=2).repeat_interleave(s, dim=3)
+            elif t == "shortcut":
+                x = x + acts[_refs(l, i)[0]]
             elif t == "route":
                 parts = [acts[r] for r in _refs(l, i)]
                 x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
@@ -331,16 +459,23 @@ class YoloV4Tiny(nn.Module):
         """The decoded rows of a list of frames, one forward and one host
         fetch for the list: (n, rows, 5 + classes) float32 NumPy."""
         dev = self.device
-        x = torch.stack([
-            _resize_bilinear(np.ascontiguousarray(f[..., ::-1]), self.size,
-                             self.size, dev) for f in frames_bgr])
-        # a divisor on the device: CUDA divides by a host scalar through
-        # its reciprocal, which is not the JAX package's rounding
-        x = (x / torch.full((), 255.0, device=dev)).permute(0, 3, 1, 2)
-        with torch.no_grad(), torch.backends.cudnn.flags(
-                enabled=True, allow_tf32=False):
-            heads = self(x.contiguous())
-        return fetch(torch.cat(heads, dim=1))
+        with P.span("svtt.detect.preprocess"):
+            x = torch.stack([
+                _resize_bilinear(np.ascontiguousarray(f[..., ::-1]),
+                                 self.size, self.size, dev)
+                for f in frames_bgr])
+            # a divisor on the device: CUDA divides by a host scalar
+            # through its reciprocal, which is not the JAX package's
+            # rounding
+            x = (x / torch.full((), 255.0, device=dev)).permute(0, 3, 1, 2)
+            x = x.contiguous()
+        with P.span("svtt.detect.forward", **self.counts), torch.no_grad(), \
+                torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            out = torch.cat(self(x), dim=1)
+        with P.span("svtt.detect.fetch") as sp:
+            rows = fetch(out)
+            sp.add(bytes=rows.nbytes)
+        return rows
 
     def detect_batch(self, frames_bgr,
                      conf_threshold: float = CONFIDENCE_THRESHOLD,
@@ -349,11 +484,25 @@ class YoloV4Tiny(nn.Module):
         """Detect on a whole list of frames with one forward and one host
         fetch.  Per-frame results are identical to detect() on each
         frame."""
-        rows_all = self.rows(frames_bgr)
-        return [self._rows_to_dets(
-                    rows_all[i], frames_bgr[i].shape[:2],
-                    conf_threshold, nms_threshold)
-                for i in range(len(frames_bgr))]
+        return self.decode(self.rows(frames_bgr),
+                           [f.shape[:2] for f in frames_bgr],
+                           conf_threshold, nms_threshold)
+
+    def decode(self, rows_all: np.ndarray, frame_hws,
+               conf_threshold: float = CONFIDENCE_THRESHOLD,
+               nms_threshold: float = NMS_THRESHOLD
+               ) -> List[List[Detection]]:
+        """rows() of a list of frames -> each frame's detections in its
+        pixel coordinates; frame_hws: each frame's (H, W)."""
+        with P.span("svtt.detect.decode") as sp:
+            dets = [self._rows_to_dets(rows, hw, conf_threshold,
+                                       nms_threshold)
+                    for rows, hw in zip(rows_all, frame_hws)]
+            if P.recording():
+                sp.add(candidates=int((rows_all[..., 5:] >= conf_threshold)
+                                      .any(axis=-1).sum()),
+                       detections=sum(len(d) for d in dets))
+        return dets
 
     def _rows_to_dets(self, rows, frame_hw, conf_threshold,
                       nms_threshold) -> List[Detection]:

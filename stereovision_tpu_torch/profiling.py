@@ -220,7 +220,7 @@ class _Recorder:
         if not hasattr(loc, "stack"):
             # the OS thread id once a thread: threading.get_native_id()
             # took 6-10 us a call on an H100 machine's host CPU
-            loc.stack, loc.frame = [], None
+            loc.stack, loc.frame, loc.last_frame = [], None, None
             loc.tid = threading.get_native_id()
         return loc.stack
 
@@ -285,6 +285,7 @@ class _Span:
         self._stack.pop()
         if self._root:
             rec.local.frame = self._outer
+            rec.local.last_frame = self.frame_id
         # plain tuples in the ring; Span when drained
         rec.ring.append((self.name, self.frame_id, self.parent,
                          rec.local.tid, self.t0, t1, self.counts, self.id))
@@ -350,6 +351,14 @@ def current_frame() -> Optional[int]:
     in_frame)."""
     _REC.stack()
     return _REC.local.frame
+
+
+def last_frame() -> Optional[int]:
+    """The frame id of the root span (root or frame) that the calling
+    thread closed last: work done for a frame after its entry point
+    returned opens its own root in it."""
+    _REC.stack()
+    return _REC.local.last_frame
 
 
 def count(**counts) -> None:

@@ -88,21 +88,22 @@ def degenerate_frames() -> Dict[str, Tuple[ElasParams, np.ndarray,
     }
 
 
-# added to the objectness bias of every yolo head of darknet_weights: as
-# with trained weights, few rows of a frame then score above the 0.5
-# threshold (on the scenes of stereo_pair with seed 0 and the built-in
-# 608x608 cfg, 32 candidate rows and 5 detections a KITTI-size frame; with
-# no shift ~17,000 and ~3,700)
+# the default shift of the objectness bias of every yolo head of
+# darknet_weights: as with trained weights, few rows of a frame then score
+# above the 0.5 threshold (on the scenes of stereo_pair with seed 0 and the
+# built-in yolov4-tiny cfg at 608x608, 32 candidate rows and 5 detections a
+# KITTI-size frame; with no shift ~17,000 and ~3,700)
 OBJECTNESS_SHIFT = -1.25
 
 
-def darknet_weights(path: str, sections, seed: int) -> None:
+def darknet_weights(path: str, sections, seed: int,
+                    objectness_shift: float = OBJECTNESS_SHIFT) -> None:
     """Write a darknet .weights file (version 0.2.5 header, then per conv
     layer [bn_b, bn_g, bn_mean, bn_var] or [bias], then OIHW weights) for
     the cfg sections, drawn from default_rng(seed): batch-norm shifts and
     means ~ N(0, 0.5), scales ~ N(1, 0.3), variances |N(1, 0.3)| + 0.25,
     weights ~ N(0, 1/sqrt(fan_in)), biases ~ N(0, 0.5), the heads'
-    objectness biases moved by OBJECTNESS_SHIFT."""
+    objectness biases moved by objectness_shift."""
     rng = np.random.default_rng(seed)
     chunks = [np.array([0, 2, 5], np.int32).tobytes(),
               np.array([0], np.int64).tobytes()]
@@ -124,7 +125,7 @@ def darknet_weights(path: str, sections, seed: int) -> None:
                 head = layers[i + 1] if i + 1 < len(layers) else {}
                 if head.get("type") == "yolo":
                     per = 5 + int(head.get("classes", 80))
-                    bias[4::per] += np.float32(OBJECTNESS_SHIFT)
+                    bias[4::per] += np.float32(objectness_shift)
                 chunks.append(bias)
             chunks.append(rng.normal(0, 1.0 / np.sqrt(k * k * c_in),
                                      (f, c_in, k, k)).astype(np.float32))
