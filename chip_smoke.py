@@ -153,7 +153,7 @@ then:
      0.5, 0.6, ..., 3.0, each at full resolution and subsampled; 52 frame
      sizes from 2484x750 down to 414x125): for each pair, StereoEngine at
      int(1242 / s) x int(375 / s) with the intrinsics divided by s, on two
-     of phase 3's pairs resized as io/kitti.py resizes them; eager
+     of phase 3's pairs resized as io/kitti.py resizes them;
      process_frame after a warm-up, ElasEngine.process_jit (graphs made
      at that size) and stream_batched (pipeline_depth=3, fetch "host") at
      the sweep's batch, 2 batches after one of warm-up, the host middle in
@@ -643,6 +643,16 @@ def per_frame_counts(p, n: int) -> dict:
             "speckle_ccl": n * (1 if p.postprocess_only_left else 2)}
 
 
+def cold_frame_counts(p, n: int) -> dict:
+    """Launches of n frames through process_frame on a new engine: the n
+    frames', and at the first call those of the graphs' capture
+    (ElasEngine.stage_graphs): stages A and B warmed up eagerly, and stage
+    A replayed on the blank frame that stage B is captured from."""
+    counts = per_frame_counts(p, n + 1)
+    counts["support"] += 1
+    return counts
+
+
 def drive_streams(eng, scenes, outs, card, mode) -> dict:
     """Phase 6's main paths for one mode: stream over the 8 frames, then
     stream_batched at the mode's batch, each with the launch counts zeroed
@@ -811,7 +821,9 @@ def drive_cli(scenes, outs, card) -> None:
             assert rc == 0, (name, rc)
             p = app_params(subsampling=mode == "subsampled")
             avg = check_frame_lines(lines, n, p.out_shape(W, H))
-            assert launches == per_frame_counts(p, batches), (name, launches)
+            expect = (per_frame_counts if "--batch" in (extra or [])
+                      else cold_frame_counts)(p, batches)
+            assert launches == expect, (name, launches)
             if extra is not None:
                 assert sorted(os.listdir(out_dir)) == [
                     "frame_%06d.npz" % i for i in range(n)]
@@ -983,7 +995,7 @@ def check_stereo_vision(cfg, weights, cpu, frames, outs, p, card) -> dict:
             objects.append(sv.last["objects"])
     wall = time.perf_counter() - t
     launches = read_counts()
-    assert launches == per_frame_counts(p, len(frames)), launches
+    assert launches == cold_frame_counts(p, len(frames)), launches
     left = frames[0][0]
     rows, ref = sv.detector.rows([left]), cpu.rows([left])
     margin = min(yolo.decision_margins(ref[0], rows[0],
@@ -1021,7 +1033,9 @@ def check_cli_detection(det, eng, cfg, weights, frames, outs, pts_dev, p,
         assert rc == 0, (name, rc)
         avg = check_frame_lines([l for l in lines if not l.startswith("  ")],
                                 n_run, p.out_shape(W, H))
-        assert launches == per_frame_counts(p, batches), (name, launches)
+        expect = (per_frame_counts if "--batch" in extra
+                  else cold_frame_counts)(p, batches)
+        assert launches == expect, (name, launches)
         got = {}
         for line in lines:
             if line.startswith("(FPS="):
@@ -1155,7 +1169,7 @@ def drive_capi(frames, outs, p, tmp, card) -> dict:
             assert np.array_equal(colors.reshape(H, W, 4), bgra[0])
     launches = read_counts()
     lib.clean()
-    assert launches == per_frame_counts(p, 4), launches
+    assert launches == cold_frame_counts(p, 4), launches
     exe = os.path.join(tmp, "capi_example")
     subprocess.run(["gcc", os.path.join(REPO, "stereovision_tpu_torch",
                                         "csrc", "capi_example.c"), "-o",
@@ -1484,7 +1498,7 @@ def check_viewer_cli(scenes, outs_by_mode, tmp, card) -> dict:
             avg = check_frame_lines(
                 [l for l in lines if not l.startswith("  ")], n,
                 p.out_shape(W, H))
-            assert launches == per_frame_counts(p, n), (name, launches)
+            assert launches == cold_frame_counts(p, n), (name, launches)
             runs[name] = {"argv": " ".join(a for a in argv[6:]
                                            if not a.startswith(tmp)),
                           "frames": n, "AVG_FPS": avg, "wall_s": wall,
@@ -1998,14 +2012,14 @@ SCALE_CAPI = 2               # the C ABI's scale (an int there)
 def check_scale(scale, sub, pairs, calib, card):
     """Phase 13 for one (scale, subsampling): StereoEngine at the scale's
     frame size with the intrinsics divided by the scale; the pairs (1242x375)
-    resized as io/kitti.py resizes them; eager process_frame after a
-    warm-up, ElasEngine.process_jit (graphs made at that size), and
-    stream_batched at the sweep's batch (SCALE_BATCHES batches after one
-    of warm-up), each with the launch counts zeroed just before and read
-    just after; every process_jit D1 and D2 equal to eager process's, and
-    every streamed frame's dmap and points to its process_frame's, bit for
-    bit.  Prints one line; returns frame 0's process_frame output, its
-    disparity on the host."""
+    resized as io/kitti.py resizes them; process_frame (graph replays on
+    the card) after a warm-up, ElasEngine.process_jit (graphs made at that
+    size), and stream_batched at the sweep's batch (SCALE_BATCHES batches
+    after one of warm-up), each with the launch counts zeroed just before
+    and read just after; every process_jit D1 and D2 equal to eager
+    process's, and every streamed frame's dmap and points to its
+    process_frame's, bit for bit.  Prints one line; returns frame 0's
+    process_frame output, its disparity on the host."""
     from stereovision_tpu_torch import scales
     from stereovision_tpu_torch.engine import StereoEngine, bgr_to_gray
     from stereovision_tpu_torch.io.kitti import _resize
@@ -2166,7 +2180,7 @@ def check_scale_cli(scenes, calib, card) -> dict:
             rc, lines, wall, launches = run_cli(argv)
             assert rc == 0, (scale, sub, rc)
             avg = check_frame_lines(lines, n, p.out_shape(w, h))
-            assert launches == per_frame_counts(p, n), launches
+            assert launches == cold_frame_counts(p, n), launches
             seq = KittiRawSequence(kitti, width=w, height=h)
             with StereoEngine(calib, w, h, scale=scale, params=p) as eng:
                 for i in range(n):
@@ -2211,7 +2225,7 @@ def check_scale_capi(pair, ref_points) -> dict:
     lib.clean()
     assert np.array_equal(pts.reshape(-1, 3),
                           ref_points.astype(np.float64)), "C ABI cloud"
-    assert launches == per_frame_counts(app_params(), 1), launches
+    assert launches == cold_frame_counts(app_params(), 1), launches
     return {"scale": SCALE_CAPI, "size": "%dx%d" % (w, h), "frame_ms": ms,
             "launches": launches,
             "cloud": "equal to process_frame's as float64"}

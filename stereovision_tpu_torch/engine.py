@@ -7,10 +7,14 @@ reference application's output conventions, and two streaming modes
   publishPointCloud     stereo_vision.cpp:222-280 (Q reprojection of the
                         *uint8* disparity)
 
-process_frame is one blocking frame.  stream overlaps frames with a
-lookahead of stage A; stream_batched runs batches of frames, each kernel
-launched once a batch, through a prefetch thread, `pipeline_depth` tail
-workers and a spawn process pool for the host middle.  On the card every
+process_frame is one blocking frame.  On the card it replays its device
+work from three CUDA graphs (graphs.StageGraph), captured at its first call
+and kept until close(): stage A and stage B (ElasEngine.stage_graphs) and
+the reprojection of B's D1, read in place; on the CPU the same three run
+eagerly.  stream overlaps frames with a lookahead of stage A;
+stream_batched runs batches of frames, each kernel launched once a batch,
+through a prefetch thread, `pipeline_depth` tail workers and a spawn
+process pool for the host middle.  On the card every
 thread of the pipeline launches on a CUDA stream of its own; a tensor made
 on one thread's stream and read on another's is ordered by an event and
 kept from reuse by record_stream.  stream_batched(fused=True) is the
@@ -21,20 +25,24 @@ the caller's thread before the pipeline starts.
 
 Spans (profiling.py, while tracing is on).  process_frame and stream
 record each frame as the root "svtt.frame" (its id from the ElasEngine's
-frame_ids, its count "entry" the entry point) with the children
-"svtt.gray", "svtt.stage_a", "svtt.fetch_support" (the support grid to the
-host), "svtt.host_mid", "svtt.upload_geometry" (packing and the enqueued
-copy), "svtt.stage_b", "svtt.reproject", "svtt.fetch_dmap" and
-"svtt.fetch_cloud"; stream's stage A of a frame dispatched ahead is a root
-"svtt.frame" of its own.  stream_batched records each batch as the root
-"svtt.batch" (counts batch and first, its first frame's id) on the
-prefetch thread ("svtt.gray", "svtt.upload_images", "svtt.stage_a") and on
-the tail worker ("svtt.queue_wait" from submission to start,
-"svtt.fetch_support", "svtt.host_mid_pool", "svtt.upload_geometry",
-"svtt.stage_b", "svtt.reproject", "svtt.fetch_dmap", "svtt.fetch_cloud");
-the host middle's own spans come back from the pool's workers, frame by
-frame.  Under fused=True, "svtt.stage_a" and "svtt.stage_b" are each one
-graph replay (stage B's with the reprojection).
+frame_ids, its count "entry" the entry point; under process_frame also
+"graphs", the frame's graph replays: 3 on the card, 0 on the CPU) with the
+children "svtt.gray", "svtt.stage_a", "svtt.fetch_support" (the support
+grid to the host), "svtt.host_mid", "svtt.upload_geometry" (packing and
+the enqueued copy; under process_frame the packing alone, the copy into
+graph B's static buffer falling in "svtt.stage_b"), "svtt.stage_b",
+"svtt.reproject" (under process_frame with the clones of what it returns
+on the device), "svtt.fetch_dmap" and "svtt.fetch_cloud"; stream's stage A
+of a frame dispatched ahead is a root "svtt.frame" of its own.
+stream_batched records each batch as the root "svtt.batch" (counts batch
+and first, its first frame's id) on the prefetch thread ("svtt.gray",
+"svtt.upload_images", "svtt.stage_a") and on the tail worker
+("svtt.queue_wait" from submission to start, "svtt.fetch_support",
+"svtt.host_mid_pool", "svtt.upload_geometry", "svtt.stage_b",
+"svtt.reproject", "svtt.fetch_dmap", "svtt.fetch_cloud"); the host
+middle's own spans come back from the pool's workers, frame by frame.
+Under fused=True, "svtt.stage_a" and "svtt.stage_b" are each one graph
+replay (stage B's with the reprojection).
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ import torch
 
 from . import profiling as P
 from .device import resolve_device
+from .graphs import StageGraph
 from .hostlib.geometry import host_mid_standalone
 from .io.calibration import Rectification, rectification_from_yaml
 from .models.elas import ElasEngine
@@ -137,6 +146,12 @@ class StereoEngine:
         self._executors = None
         # stream_batched(fused=True)'s graph pairs, by batch size
         self._fused: Dict[int, list] = {}
+        # process_frame's graphs (stage A, stage B, reprojection), made at
+        # its first call; its callers take turns under the lock, and the
+        # next replay waits for the event after the last frame's clones
+        self._frame_graphs: Optional[tuple] = None
+        self._frame_lock = threading.Lock()
+        self._frame_done = None
         # how the last stream_batched ran its host middle: "process" or,
         # where the pool's processes could not start, "thread"
         self.host_mode: Optional[str] = None
@@ -164,14 +179,15 @@ class StereoEngine:
         return self._executors[:3]
 
     def close(self):
-        """Release the worker threads and the host geometry processes.
-        Idempotent; the engine stays usable (pools are made again on
-        demand)."""
+        """Release the worker threads, the host geometry processes and the
+        graphs.  Idempotent; the engine stays usable (pools and graphs are
+        made again on demand)."""
         if self._executors is not None:
             for e in self._executors[:3]:
                 e.shutdown(wait=True, cancel_futures=True)
             self._executors = None
         self._fused = {}
+        self._frame_graphs = None
         self.elas.close()
 
     def __enter__(self):
@@ -230,6 +246,23 @@ class StereoEngine:
             dmap, points = self.reproject(D1)
         return D1, dmap, points
 
+    def frame_graphs(self) -> tuple:
+        """process_frame's stages as graphs.StageGraph: (A, B, R), A and B
+        from ElasEngine.stage_graphs, R the reprojection of B's D1, read in
+        place, in A's memory pool; made at first need and kept until
+        close().  On the CPU all three call their functions."""
+        if self._frame_graphs is None:
+            name = "process_frame"
+            a, b = self.elas.stage_graphs(name=name)
+            if b.graph is None:
+                r = StageGraph(name + ": reproject", self.reproject,
+                               device=self.device)
+            else:
+                r = StageGraph(name + ": reproject", self.reproject,
+                               b.outputs[:1], pool=a.pool)
+            self._frame_graphs = (a, b, r)
+        return self._frame_graphs
+
     def process_frame(self, left: np.ndarray, right: np.ndarray,
                       fetch: str = "host") -> Dict:
         """left/right: (H, W[, C]) uint8 BGR(A)/gray frames at engine size.
@@ -239,29 +272,55 @@ class StereoEngine:
 
         fetch: "host" copies dmap and points to NumPy; "dmap" copies only
         the display disparity and leaves the cloud on the device; "device"
-        leaves everything on the device."""
+        leaves everything on the device.
+
+        The device stages are frame_graphs(): on the card a replay each,
+        whose outputs the next replay overwrites, so the tensors handed
+        back are clones.  Calls from several threads take turns."""
         _check_fetch(fetch)
-        with P.frame(self.elas.frame_ids, "process_frame"):
-            t0 = time.perf_counter()
-            with P.span("svtt.gray"):
-                g1 = bgr_to_gray(left)
-                g2 = bgr_to_gray(right)
-            td = time.perf_counter()
-            with P.span("svtt.stage_a"):
-                desc1, desc2, d_can = self.elas.stage_support(g1, g2)
-            D1, dmap, points = self._run_dense(desc1, desc2, d_can)
-            if fetch in ("host", "dmap"):
-                with P.span("svtt.fetch_dmap"):
-                    dmap = to_host(dmap)
-            tq = time.perf_counter()
-            if fetch == "host":
-                with P.span("svtt.fetch_cloud"):
-                    points = to_host(points).reshape(-1, 3)
-            t1 = time.perf_counter()
-        # dmap_t starts after the gray conversion, as the JAX engine's
-        self.timings = {"t_t": t1 - t0, "dmap_t": tq - td, "pc_t": t1 - tq}
-        return {"dmap": dmap, "disparity": D1, "points": points,
-                "timings": dict(self.timings)}
+        with self._frame_lock:
+            graphs = self.frame_graphs()
+            stage_a, stage_b, tail = graphs
+            with P.frame(self.elas.frame_ids, "process_frame") as fr:
+                fr.add(graphs=sum(g.graph is not None for g in graphs))
+                t0 = time.perf_counter()
+                with P.span("svtt.gray"):
+                    g1 = bgr_to_gray(left)
+                    g2 = bgr_to_gray(right)
+                td = time.perf_counter()
+                if self._frame_done is not None:
+                    torch.cuda.current_stream(self.device).wait_event(
+                        self._frame_done)
+                with P.span("svtt.stage_a"):
+                    desc1, desc2, d_can = stage_a(g1, g2)
+                with P.span("svtt.fetch_support"):
+                    d_can = to_host(d_can)
+                g = self.elas.host_mid(d_can)
+                with P.span("svtt.upload_geometry"):
+                    buf = self.elas.pack_geometry(g)
+                with P.span("svtt.stage_b"):
+                    D1, _ = stage_b(desc1, desc2, buf)
+                with P.span("svtt.reproject"):
+                    dmap, points = tail(D1)
+                    D1 = D1.clone()
+                    if fetch == "device":
+                        dmap = dmap.clone()
+                    if fetch != "host":
+                        points = points.clone()
+                if fetch in ("host", "dmap"):
+                    with P.span("svtt.fetch_dmap"):
+                        dmap = to_host(dmap)
+                tq = time.perf_counter()
+                if fetch == "host":
+                    with P.span("svtt.fetch_cloud"):
+                        points = to_host(points).reshape(-1, 3)
+                t1 = time.perf_counter()
+                self._frame_done = _record(self.device.type == "cuda")
+            # dmap_t starts after the gray conversion, as the JAX engine's
+            self.timings = {"t_t": t1 - t0, "dmap_t": tq - td,
+                            "pc_t": t1 - tq}
+            return {"dmap": dmap, "disparity": D1, "points": points,
+                    "timings": dict(self.timings)}
 
     # -- pipelined streaming path -------------------------------------------
 

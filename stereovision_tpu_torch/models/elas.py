@@ -25,7 +25,8 @@ by frame, in a spawn process pool for the streaming paths (host_pool).
 
 process_jit is the one-dispatch mode (elas.py:404-421): stage A and stage
 B each one replay of a CUDA graph (graphs.StageGraph, K1-K4 inside), the
-host middle between them; stage_graphs makes the pair for it and for
+host middle between them; stage_graphs makes the pair for it, for
+StereoEngine.process_frame on the card and for
 StereoEngine.stream_batched(fused=True).
 
 Spans (profiling.py, while tracing is on): process_jit records each frame

@@ -9,12 +9,21 @@ capture path and launch accounting run on a stand-in for
 torch.cuda.CUDAGraph, as does the pause of the cyclic collector while
 captures on two threads overlap.  stream_batched(fused=True) is held in tests/test_torch_stream.py.
 
+StereoEngine.process_frame runs its three stages (A, B and the
+reprojection) through StageGraph: on the CPU eagerly, equal to
+ElasEngine.process followed by reproject in every fetch mode, the root
+svtt.frame counting no graph; on a stand-in whose replays overwrite their
+static outputs, a frame's tensors outlive the next frames, two threads
+each get their own frames, and close() drops the graphs.
+
 The tests marked `cuda` (skipped without a card) capture and replay the
 stages on the card: process_jit and the stages of a batch of 3 equal to
 the eager path, two graph pairs replayed from two threads, the launch
 counters after replays, stream_batched(fused=True) equal to
-process_frame, and a function that cannot be captured raising instead of
-running eagerly.  The JAX package is imported inside the tests that use
+process_frame, process_frame's replays equal to the eager stages at
+1242x375 (full resolution and subsampled, every fetch mode, the launch
+counters alike) and released by close(), and a function that cannot be
+captured raising instead of running eagerly.  The JAX package is imported inside the tests that use
 it, so that the card's test run, which has no jax, can collect this file:
 
     python -m pytest --noconftest -m cuda tests/test_torch_graphs.py
@@ -333,6 +342,176 @@ def test_process_jit_matches_jax_and_process(preset):
     assert "process_jit" not in vars(pe)
 
 
+# ---- process_frame's graphs on the CPU --------------------------------------
+
+
+class Replaying(StandIn):
+    """A stand-in whose replay runs its stage's function on the static
+    inputs and writes the results into the static outputs, as a CUDA
+    graph's replay does: the next replay overwrites what the last gave."""
+
+    stage = None
+
+    def replay(self):
+        super().replay()
+        sg = self.stage
+        outs, new = sg.outputs, sg.fn(*sg.static)
+        for dst, src in (zip(outs, new) if isinstance(outs, tuple)
+                         else [(outs, new)]):
+            dst.copy_(src)
+
+
+class ReplayingStageGraph(StageGraph):
+    """StageGraph on the Replaying stand-in, also on the CPU."""
+
+    def __init__(self, *args, **kwargs):
+        kwargs["graph"] = Replaying
+        super().__init__(*args, **kwargs)
+        self.graph.stage = self
+
+
+@pytest.fixture
+def replaying(monkeypatch):
+    """process_frame's graphs made on the Replaying stand-in."""
+    from stereovision_tpu_torch import engine as engine_mod
+    from stereovision_tpu_torch.models import elas as elas_mod
+    monkeypatch.setattr(engine_mod, "StageGraph", ReplayingStageGraph)
+    monkeypatch.setattr(elas_mod, "StageGraph", ReplayingStageGraph)
+
+
+@pytest.fixture(scope="module")
+def small():
+    eng = StereoEngine(CALIB, W, H, device="cpu")
+    pairs = [stereo_pair(W, H, seed=s)[:2] for s in (3, 4, 5)]
+    refs = [_eager_frame(eng, *pair) for pair in pairs]
+    yield eng, pairs, refs
+    eng.close()
+
+
+def _eager_frame(eng, left, right):
+    """The eager stages of one frame: ElasEngine.process, then reproject
+    of D1 -> (D1, dmap, points (pc_h, pc_w, 3)), each cloned."""
+    D1, _ = eng.elas.process(bgr_to_gray(left), bgr_to_gray(right))
+    dmap, points = eng.reproject(D1)
+    return tuple(x.clone() for x in (D1, dmap, points))
+
+
+def _check_frame(out, ref, fetch):
+    """process_frame's output against _eager_frame's: types by fetch mode,
+    values bit for bit."""
+    D1, dmap, points = (x.cpu() for x in ref)
+    assert torch.is_tensor(out["disparity"])
+    _eq(out["disparity"], D1.numpy())
+    if fetch == "device":
+        assert torch.is_tensor(out["dmap"])
+    else:
+        assert isinstance(out["dmap"], np.ndarray)
+    _eq(out["dmap"], dmap.numpy())
+    if fetch == "host":
+        assert isinstance(out["points"], np.ndarray)
+        _eq(out["points"], points.reshape(-1, 3).numpy())
+    else:
+        assert torch.is_tensor(out["points"])
+        _eq(out["points"], points.numpy())
+
+
+@pytest.mark.parametrize("fetch", ["host", "dmap", "device"])
+def test_process_frame_equals_the_eager_stages(small, fetch):
+    """On the CPU process_frame's three stages run eagerly (no graph) and
+    every frame equals ElasEngine.process followed by reproject."""
+    eng, pairs, refs = small
+    for pair, ref in zip(pairs, refs):
+        _check_frame(eng.process_frame(*pair, fetch=fetch), ref, fetch)
+    assert [g.graph for g in eng.frame_graphs()] == [None] * 3
+
+
+def test_process_frame_root_counts_no_graph_on_the_cpu(small):
+    """The root svtt.frame carries graphs = 0 on the CPU."""
+    from stereovision_tpu_torch import profiling as P
+    eng, pairs, _ = small
+    P.trace_stop()
+    P.trace_drain()
+    P.trace_start()
+    try:
+        eng.process_frame(*pairs[0])
+    finally:
+        P.trace_stop()
+    roots = [s for s in P.trace_drain()["spans"] if s.name == "svtt.frame"]
+    assert [r.counts for r in roots] == [{"entry": "process_frame",
+                                          "graphs": 0}]
+
+
+@pytest.mark.parametrize("fetch", ["dmap", "device"])
+def test_process_frame_outputs_outlive_the_next_replay(small, replaying,
+                                                       fetch):
+    """With graphs whose replays reuse their static outputs, the tensors
+    that a frame returns keep its values after the next frames' replays
+    (the NumPy arrays of a host fetch are copies on the card, views on
+    the CPU); each frame replays each graph once; close() drops the
+    graphs and the next call captures new ones."""
+    _, pairs, refs = small
+    eng = StereoEngine(CALIB, W, H, device="cpu")
+    outs = [eng.process_frame(*pair, fetch=fetch) for pair in pairs]
+    graphs = eng.frame_graphs()
+    # stage A replayed once more for stage B's capture
+    assert [g.graph.replays for g in graphs] == [len(pairs) + 1,
+                                                 len(pairs), len(pairs)]
+    assert graphs[2].static[0] is graphs[1].outputs[0]
+    assert graphs[1].graph.kwargs["pool"] == graphs[0].pool
+    assert graphs[2].graph.kwargs["pool"] == graphs[0].pool
+    for out, (D1, dmap, points) in zip(outs, refs):
+        _eq(out["disparity"], D1.numpy())
+        _eq(out["points"], points.numpy())
+        if fetch == "device":
+            _eq(out["dmap"], dmap.numpy())
+    eng.close()
+    assert eng._frame_graphs is None
+    _check_frame(eng.process_frame(*pairs[1], fetch="device"), refs[1],
+                 "device")
+    assert all(g.graph.begun == 1 and g.graph.replays == 1
+               for g in eng.frame_graphs()[1:])
+    assert not any(a is b for a, b in zip(graphs, eng.frame_graphs()))
+    eng.close()
+
+
+def test_process_frame_two_threads_each_get_their_frames(small, replaying):
+    """Two threads call one engine whose graphs reuse their static
+    outputs, 3 frames each, with a short switch interval: every frame's
+    tensors are that frame's."""
+    import sys
+    _, pairs, refs = small
+    eng = StereoEngine(CALIB, W, H, device="cpu")
+    got, errors = {}, []
+
+    def work(t):
+        try:
+            for k in range(3):
+                i = (t + k) % len(pairs)
+                got[t, k] = (i, eng.process_frame(*pairs[i],
+                                                  fetch="device"))
+        except Exception as err:            # reported by the main thread
+            errors.append(err)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(t,))
+                   for t in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    assert len(got) == 6
+    for i, out in got.values():
+        _check_frame(out, refs[i], "device")
+    assert [g.graph.replays for g in eng.frame_graphs()] == [7, 6, 6]
+    eng.close()
+
+
 # ---- on the card -----------------------------------------------------------
 
 
@@ -529,3 +708,63 @@ def test_uncapturable_function_raises(cuda):
     good = StageGraph("good", lambda y: y * 2, (x,))
     assert torch.equal(good(torch.full((4,), 3.0)).cpu(),
                        torch.full((4,), 6.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subsampling", [False, True], ids=["full", "sub"])
+def test_process_frame_on_the_card_equals_eager(cuda, subsampling):
+    """process_frame replays its three graphs: at 1242x375, full
+    resolution and subsampled, 3 seeds in every fetch mode, D1, dmap and
+    points equal bit for bit to eager ElasEngine.process followed by
+    reproject; every svtt.frame counts 3 graphs; the launch counters add
+    what the eager path's do."""
+    from stereovision_tpu_torch import profiling as P
+    kw, kh = 1242, 375
+    eng = StereoEngine(CALIB, kw, kh, subsampling=subsampling, device=cuda)
+    pairs = [stereo_pair(kw, kh, seed=s)[:2] for s in (11, 12, 13)]
+    _zero_counts()
+    refs = [_eager_frame(eng, *pair) for pair in pairs]
+    torch.cuda.synchronize()
+    eager = _counts()
+    eng.process_frame(*pairs[0])
+    assert all(g.graph is not None for g in eng.frame_graphs())
+    P.trace_stop()
+    P.trace_drain()
+    P.trace_start()
+    try:
+        for fetch in ("host", "dmap", "device"):
+            _zero_counts()
+            outs = [eng.process_frame(*pair, fetch=fetch) for pair in pairs]
+            torch.cuda.synchronize()
+            assert _counts() == eager, fetch
+            for out, ref in zip(outs, refs):
+                _check_frame(out, ref, fetch)
+    finally:
+        P.trace_stop()
+    roots = [s for s in P.trace_drain()["spans"] if s.name == "svtt.frame"]
+    assert [r.counts for r in roots] == [{"entry": "process_frame",
+                                          "graphs": 3}] * 9
+    eng.close()
+
+
+@pytest.mark.cuda
+def test_process_frame_close_releases_its_graphs(cuda):
+    """close() drops process_frame's graphs and their memory; the next
+    call captures new ones, and both give the eager frame."""
+    eng = StereoEngine(CALIB, W, H, params=_port_params("app"), device=cuda)
+    pair = stereo_pair(W, H, seed=1)[:2]
+    ref = _eager_frame(eng, *pair)
+    first = eng.process_frame(*pair, fetch="device")
+    graphs = eng.frame_graphs()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(cuda)
+    eng.close()
+    assert eng._frame_graphs is None
+    del graphs
+    gc.collect()
+    assert torch.cuda.memory_allocated(cuda) < held
+    second = eng.process_frame(*pair, fetch="device")
+    assert all(g.graph is not None for g in eng.frame_graphs())
+    for out in (first, second):
+        _check_frame(out, ref, "device")
+    eng.close()
