@@ -114,7 +114,7 @@ then:
      equal bit for bit; profile_pipeline's four sections in both modes;
      and device_trace around one process_frame, whose Chrome trace must
      name the CUDA functions of all four kernels;
-  11. the one-dispatch modes, on the 8 frames of phase 5, in each mode:
+  11. the one-dispatch mode, on the 8 frames of phase 5, in each mode:
      ElasEngine.process_jit (stage A and stage B each one replay of a CUDA
      graph, the host middle between them), its graphs made at the first
      call (seconds, each graph's capture seconds, memory reserved before
@@ -123,13 +123,8 @@ then:
      equal bit for bit to eager ElasEngine.process; frame ms of both
      paths in interleaved turns (eager, graphs, graphs, eager), each
      stage's host ms to a synchronise, two frames of each under
-     torch.profiler (idle share, the runtime's launch calls); then
-     StereoEngine.stream_batched(fused=True) at phase 6's batch and
-     settings: its 3 graph pairs made (seconds, memory), fused and
-     unfused runs of 5 batches and 3 frames in interleaved turns, every
-     frame equal to phase 5's process_frame bit for bit, launch counts
-     one a batch, whole-run frames/s of both, two batches of each under
-     torch.profiler.  A capture that fails fails the run;
+     torch.profiler (idle share, the runtime's launch calls).  A capture
+     that fails fails the run;
   12. the degenerate frames of the robustness tests
      (synthetic.degenerate_frames): a flat 96x64 pair under the robotics
      preset (no support point, no triangle) and under app_params(), full
@@ -1614,9 +1609,7 @@ def drive_viewer(scenes, outs_by_mode, calib, card) -> None:
 
 ONE_DISPATCH_TURNS = ("eager", "graphs", "graphs", "eager")   # interleaved
 # the kernel modes the one-dispatch paths replay inside their graphs
-GRAPH_PATHS = {"": "ElasEngine.process_jit",
-               "_batched": "stream_batched(fused=True)"}
-FUSED_BATCHES = 5            # phase 11: whole batches a stream_batched turn
+GRAPH_PATHS = {"": "ElasEngine.process_jit"}
 
 
 def check_process_jit(elas, grays, card, mode) -> dict:
@@ -1691,76 +1684,9 @@ def check_process_jit(elas, grays, card, mode) -> dict:
     return launches
 
 
-def check_fused(eng, scenes, outs, card, mode) -> dict:
-    """Phase 11's stream_batched(fused=True) for one mode, at phase 6's
-    batch and settings: its pipeline_depth graph pairs made (time,
-    memory), then fused and unfused runs of FUSED_BATCHES batches and 3
-    frames in interleaved turns after a warm-up of each, every frame equal
-    to phase 5's process_frame (outs), launch counts one a batch;
-    whole-run frames/s, and a profile of two batches of each.  Returns the
-    fused runs' launch counts."""
-    B = BATCH[mode]
-    frames = [(lf, rf) for lf, rf, _ in scenes[1:]]
-    run = dict(batch=B, fetch="host", pipeline_depth=3,
-               host_workers="process")
-
-    def seq(n):
-        return (frames[i % len(frames)] for i in range(n))
-
-    torch.cuda.synchronize()
-    mem0 = torch.cuda.memory_reserved()
-    t = time.perf_counter()
-    pairs = eng.fused_graphs(B, run["pipeline_depth"])
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t
-    mem1 = torch.cuda.memory_reserved()
-    for fused in (True, False):
-        assert len(list(eng.stream_batched(seq(2 * B), fused=fused,
-                                           **run))) == 2 * B
-    n = FUSED_BATCHES * B + 3            # a short, padded last batch
-    n_batches = -(-n // B)
-    rates = {True: [], False: []}
-    launches = None
-    for name in ONE_DISPATCH_TURNS:
-        fused = name == "graphs"
-        torch.cuda.synchronize()
-        zero_counts()
-        t = time.perf_counter()
-        got = list(eng.stream_batched(seq(n), fused=fused, **run))
-        rates[fused].append(n / (time.perf_counter() - t))
-        counts = read_counts()
-        assert counts == per_frame_counts(eng.p, n_batches), (fused, counts)
-        assert eng.host_mode == "process", eng.host_mode
-        assert len(got) == n
-        for i, out in enumerate(got):
-            ref = outs[i % len(frames)]
-            assert np.array_equal(out["dmap"], ref["dmap"]), (fused, i)
-            assert np.array_equal(out["points"], ref["points"]), (fused, i)
-        if fused:
-            launches = counts
-    profiles = {k: profile(lambda: list(eng.stream_batched(
-        seq(2 * B), fused=k == "graphs", **run))) for k in ("eager",
-                                                            "graphs")}
-    print(json.dumps({"stream_batched_fused": {
-        "mode": mode, "batch": B, "pipeline_depth": run["pipeline_depth"],
-        "host_workers": "process", "fetch": "host", "frames": n,
-        "batches": n_batches, "launches": launches,
-        "equal_to_process_frame": "every frame of every turn, dmap and "
-                                  "points bit for bit",
-        "build_s": build_s,
-        "capture_s": [[a.capture_s, b.capture_s] for a, b in pairs],
-        "memory_reserved_bytes": {"before": mem0, "after": mem1},
-        "turns": list(ONE_DISPATCH_TURNS),
-        "frames_per_s": {"fused": rates[True], "unfused": rates[False]},
-        "profile_2_batches": profiles, "card": card}}), flush=True)
-    return launches
-
-
-def drive_one_dispatch(scenes, outs_by_mode, calib, card) -> dict:
-    """Phase 11: the one-dispatch modes in both modes, on phase 5's frames
-    (outs_by_mode: its process_frame outputs).  Returns the launch counts
-    by mode (single frame: process_jit; "_batched":
-    stream_batched(fused=True))."""
+def drive_one_dispatch(scenes, calib, card) -> dict:
+    """Phase 11: the one-dispatch mode in both modes, on phase 5's frames.
+    Returns process_jit's launch counts by mode."""
     from stereovision_tpu_torch.engine import StereoEngine, bgr_to_gray
     from stereovision_tpu_torch.params import app_params
     t = time.perf_counter()
@@ -1770,8 +1696,6 @@ def drive_one_dispatch(scenes, outs_by_mode, calib, card) -> dict:
                     ("subsampled", app_params(subsampling=True))):
         with StereoEngine(calib, W, H, params=p) as eng:
             launches[mode] = check_process_jit(eng.elas, grays, card, mode)
-            launches[mode + "_batched"] = check_fused(
-                eng, scenes, outs_by_mode[mode], card, mode)
     print(json.dumps({"phase_11_s": time.perf_counter() - t, "card": card}),
           flush=True)
     return launches
@@ -2392,8 +2316,8 @@ def main() -> int:
     # 10. the viewer and the profiler
     drive_viewer(scenes, outs_by_mode, calib, card)
 
-    # 11. the one-dispatch modes: the stages as CUDA graph replays
-    graph_launches = drive_one_dispatch(scenes, outs_by_mode, calib, card)
+    # 11. the one-dispatch mode: the stages as CUDA graph replays
+    graph_launches = drive_one_dispatch(scenes, calib, card)
     for row in rows:
         name = next(k for k in SOURCES if row["name"].startswith(k))
         rest = row["name"][len(name):]

@@ -9,19 +9,17 @@ reference application's output conventions, and two streaming modes
 
 process_frame is one blocking frame.  On the card it replays its device
 work from three CUDA graphs (graphs.StageGraph), captured at its first call
-and kept until close(): stage A and stage B (ElasEngine.stage_graphs) and
-the reprojection of B's D1, read in place; on the CPU the same three run
-eagerly.  stream overlaps frames with a lookahead of stage A;
-stream_batched runs batches of frames, each kernel launched once a batch,
-through a prefetch thread, `pipeline_depth` tail workers and a spawn
-process pool for the host middle.  On the card every
-thread of the pipeline launches on a CUDA stream of its own; a tensor made
-on one thread's stream and read on another's is ordered by an event and
-kept from reuse by record_stream.  stream_batched(fused=True) is the
-one-dispatch mode (engine.py:297-336): each batch's stage A and stage B
-with the reprojection are one replay of a CUDA graph each
-(ElasEngine.stage_graphs), from `pipeline_depth` pairs of graphs made on
-the caller's thread before the pipeline starts.
+and kept until close(): stage A and stage B (ElasEngine.stage_graphs, run
+by ElasEngine.replay_frame as process_jit runs them) and the reprojection
+of B's D1, read in place; on the CPU the same three run eagerly.  Its
+callers take turns (graphs.ReplayTurn, as process_jit's do).  stream
+overlaps frames with a lookahead of stage A, its stages eager;
+stream_batched runs batches of frames through the eager batched stages,
+each kernel launched once a batch, with a prefetch thread,
+`pipeline_depth` tail workers and a spawn process pool for the host
+middle.  On the card every thread of the pipeline launches on a CUDA
+stream of its own; a tensor made on one thread's stream and read on
+another's is ordered by an event and kept from reuse by record_stream.
 
 Spans (profiling.py, while tracing is on).  process_frame and stream
 record each frame as the root "svtt.frame" (its id from the ElasEngine's
@@ -41,15 +39,12 @@ and first, its first frame's id) on the prefetch thread ("svtt.gray",
 "svtt.host_mid_pool", "svtt.upload_geometry", "svtt.stage_b",
 "svtt.reproject", "svtt.fetch_dmap", "svtt.fetch_cloud"); the host
 middle's own spans come back from the pool's workers, frame by frame.
-Under fused=True, "svtt.stage_a" and "svtt.stage_b" are each one graph
-replay (stage B's with the reprojection).
 """
 
 from __future__ import annotations
 
 import collections
 import os.path as osp
-import queue
 import threading
 import time
 import warnings
@@ -62,7 +57,7 @@ import torch
 
 from . import profiling as P
 from .device import resolve_device
-from .graphs import StageGraph
+from .graphs import ReplayTurn, StageGraph
 from .hostlib.geometry import host_mid_standalone
 from .io.calibration import Rectification, rectification_from_yaml
 from .models.elas import ElasEngine
@@ -144,14 +139,8 @@ class StereoEngine:
         self._pc_taps: Dict[tuple, tuple] = {}
         self._lock = threading.Lock()
         self._executors = None
-        # stream_batched(fused=True)'s graph pairs, by batch size
-        self._fused: Dict[int, list] = {}
-        # process_frame's graphs (stage A, stage B, reprojection), made at
-        # its first call; its callers take turns under the lock, and the
-        # next replay waits for the event after the last frame's clones
-        self._frame_graphs: Optional[tuple] = None
-        self._frame_lock = threading.Lock()
-        self._frame_done = None
+        # process_frame's turns and its graphs
+        self.frame_turn = ReplayTurn(self.device)
         # how the last stream_batched ran its host middle: "process" or,
         # where the pool's processes could not start, "thread"
         self.host_mode: Optional[str] = None
@@ -186,8 +175,7 @@ class StereoEngine:
             for e in self._executors[:3]:
                 e.shutdown(wait=True, cancel_futures=True)
             self._executors = None
-        self._fused = {}
-        self._frame_graphs = None
+        self.frame_turn.close()
         self.elas.close()
 
     def __enter__(self):
@@ -246,22 +234,18 @@ class StereoEngine:
             dmap, points = self.reproject(D1)
         return D1, dmap, points
 
-    def frame_graphs(self) -> tuple:
+    def _make_frame_graphs(self) -> tuple:
         """process_frame's stages as graphs.StageGraph: (A, B, R), A and B
         from ElasEngine.stage_graphs, R the reprojection of B's D1, read in
-        place, in A's memory pool; made at first need and kept until
-        close().  On the CPU all three call their functions."""
-        if self._frame_graphs is None:
-            name = "process_frame"
-            a, b = self.elas.stage_graphs(name=name)
-            if b.graph is None:
-                r = StageGraph(name + ": reproject", self.reproject,
-                               device=self.device)
-            else:
-                r = StageGraph(name + ": reproject", self.reproject,
-                               b.outputs[:1], pool=a.pool)
-            self._frame_graphs = (a, b, r)
-        return self._frame_graphs
+        place, in A's memory pool.  On the CPU all three call their
+        functions."""
+        name = "process_frame"
+        a, b = self.elas.stage_graphs(name=name)
+        if b.graph is None:
+            return a, b, StageGraph(name + ": reproject", self.reproject,
+                                    device=self.device)
+        return a, b, StageGraph(name + ": reproject", self.reproject,
+                                b.outputs[:1], pool=a.pool)
 
     def process_frame(self, left: np.ndarray, right: np.ndarray,
                       fetch: str = "host") -> Dict:
@@ -274,53 +258,41 @@ class StereoEngine:
         the display disparity and leaves the cloud on the device; "device"
         leaves everything on the device.
 
-        The device stages are frame_graphs(): on the card a replay each,
-        whose outputs the next replay overwrites, so the tensors handed
-        back are clones.  Calls from several threads take turns."""
+        The device stages are three graphs (stage A, stage B, the
+        reprojection), made at the first call and kept until close(): on
+        the card a replay each, whose outputs the next replay overwrites,
+        so the tensors handed back are clones.  Calls from several threads
+        take turns of frame_turn, whose `graphs` they are."""
         _check_fetch(fetch)
-        with self._frame_lock:
-            graphs = self.frame_graphs()
-            stage_a, stage_b, tail = graphs
-            with P.frame(self.elas.frame_ids, "process_frame") as fr:
-                fr.add(graphs=sum(g.graph is not None for g in graphs))
-                t0 = time.perf_counter()
-                with P.span("svtt.gray"):
-                    g1 = bgr_to_gray(left)
-                    g2 = bgr_to_gray(right)
-                td = time.perf_counter()
-                if self._frame_done is not None:
-                    torch.cuda.current_stream(self.device).wait_event(
-                        self._frame_done)
-                with P.span("svtt.stage_a"):
-                    desc1, desc2, d_can = stage_a(g1, g2)
-                with P.span("svtt.fetch_support"):
-                    d_can = to_host(d_can)
-                g = self.elas.host_mid(d_can)
-                with P.span("svtt.upload_geometry"):
-                    buf = self.elas.pack_geometry(g)
-                with P.span("svtt.stage_b"):
-                    D1, _ = stage_b(desc1, desc2, buf)
-                with P.span("svtt.reproject"):
-                    dmap, points = tail(D1)
-                    D1 = D1.clone()
-                    if fetch == "device":
-                        dmap = dmap.clone()
-                    if fetch != "host":
-                        points = points.clone()
-                if fetch in ("host", "dmap"):
-                    with P.span("svtt.fetch_dmap"):
-                        dmap = to_host(dmap)
-                tq = time.perf_counter()
-                if fetch == "host":
-                    with P.span("svtt.fetch_cloud"):
-                        points = to_host(points).reshape(-1, 3)
-                t1 = time.perf_counter()
-                self._frame_done = _record(self.device.type == "cuda")
+        with self.frame_turn(self._make_frame_graphs) as graphs, \
+                P.frame(self.elas.frame_ids, "process_frame") as fr:
+            fr.add(graphs=sum(g.graph is not None for g in graphs))
+            t0 = time.perf_counter()
+            with P.span("svtt.gray"):
+                g1 = bgr_to_gray(left)
+                g2 = bgr_to_gray(right)
+            td = time.perf_counter()
+            D1, _ = self.elas.replay_frame(graphs, g1, g2)
+            with P.span("svtt.reproject"):
+                dmap, points = graphs[2](D1)
+                D1 = D1.clone()
+                if fetch == "device":
+                    dmap = dmap.clone()
+                if fetch != "host":
+                    points = points.clone()
+            if fetch in ("host", "dmap"):
+                with P.span("svtt.fetch_dmap"):
+                    dmap = to_host(dmap)
+            tq = time.perf_counter()
+            if fetch == "host":
+                with P.span("svtt.fetch_cloud"):
+                    points = to_host(points).reshape(-1, 3)
+            t1 = time.perf_counter()
             # dmap_t starts after the gray conversion, as the JAX engine's
             self.timings = {"t_t": t1 - t0, "dmap_t": tq - td,
                             "pc_t": t1 - tq}
-            return {"dmap": dmap, "disparity": D1, "points": points,
-                    "timings": dict(self.timings)}
+        return {"dmap": dmap, "disparity": D1, "points": points,
+                "timings": dict(self.timings)}
 
     # -- pipelined streaming path -------------------------------------------
 
@@ -379,8 +351,7 @@ class StereoEngine:
     def stream_batched(self, frames: Iterable[Tuple[np.ndarray, np.ndarray]],
                        batch: int = 4, fetch: str = "dmap",
                        pipeline_depth: int = 2,
-                       host_workers: str = "process",
-                       fused: bool = False) -> Iterator[Dict]:
+                       host_workers: str = "process") -> Iterator[Dict]:
         """Throughput mode: frames in batches of `batch`, each kernel
         launched once a batch (K1 once a pass).  The stages of a batch run
         on a tail worker, `pipeline_depth` batches in flight: support grid
@@ -391,12 +362,6 @@ class StereoEngine:
         upload and stage A of the next batches run on a prefetch thread.
         A short last batch is padded with its last frame.  host_mode
         records how the host middle of the last call ran.
-
-        fused=True: the one-dispatch mode.  The prefetch thread only
-        converts and uploads the pairs; the tail worker runs stage A and
-        then stage B with the frame tail each as one replay of a CUDA graph
-        (fused_graphs), around the same fetch, host middle and upload.  A
-        capture that fails raises; on the CPU the stages run eagerly.
 
         Yields {"dmap", "points", "timings"} per frame, in order: fetch
         "host" gives NumPy dmap and (pc_h*pc_w, 3) points, "dmap" NumPy
@@ -410,12 +375,6 @@ class StereoEngine:
         cuda = self.device.type == "cuda"
         # this call's host-middle mode; only the caller's thread publishes it
         host_mode = {"mode": host_workers}
-        if fused:
-            # a pair of graphs for each tail in flight, each with static
-            # tensors of its own, captured here before any worker runs
-            free = queue.SimpleQueue()
-            for pair in self.fused_graphs(batch, max(pipeline_depth, 1)):
-                free.put(pair)
 
         def next_batch():
             fs = []
@@ -441,9 +400,8 @@ class StereoEngine:
                 t0 = time.perf_counter()
                 with P.span("svtt.upload_images"):
                     out = upload(pairs, self.device)      # 1 H2D
-                if not fused:
-                    with P.span("svtt.stage_a"):
-                        out = self.elas.stage_support_batched(out)
+                with P.span("svtt.stage_a"):
+                    out = self.elas.stage_support_batched(out)
             return t0, n_real, out, _record(cuda), ids
 
         def host_middle(d_cans):
@@ -475,19 +433,9 @@ class StereoEngine:
                 P.record("svtt.queue_wait", submitted,
                          time.perf_counter_ns())
                 _wait(cuda, ready, out)
-                if fused:
-                    stage_a, stage_b = free.get()
-                    try:
-                        with P.span("svtt.stage_a"):
-                            out = stage_a(out)
-                        return tail(t0, n, out, stage_b)
-                    finally:
-                        # every fetch and clone of the pair's outputs is
-                        # done: tail ends with this stream synchronised
-                        free.put((stage_a, stage_b))
-                return tail(t0, n, out, None)
+                return tail(t0, n, out)
 
-        def tail(t0, n, out, stage_b):
+        def tail(t0, n, out):
             desc1, desc2, d_can = out
             with P.span("svtt.fetch_support"):
                 d_can = to_host(d_can)
@@ -496,21 +444,11 @@ class StereoEngine:
             msgs = [m for g in gs for m in g["warnings"]]
             with P.span("svtt.upload_geometry"):
                 buf = np.stack([self.elas.pack_geometry(g) for g in gs])
-                if stage_b is None:
-                    geo = upload(buf, self.device)              # 1 H2D
-            if stage_b is not None:
-                with P.span("svtt.stage_b"):
-                    # into the graph's static buffer: 1 H2D
-                    dmap, points = stage_b(desc1, desc2, buf)
-                    if fetch == "device":
-                        dmap = dmap.clone()
-                    if fetch != "host":
-                        points = points.clone()
-            else:
-                with P.span("svtt.stage_b"):
-                    D1, _ = self.elas.stage_dense_batched(desc1, desc2, geo)
-                with P.span("svtt.reproject"):
-                    dmap, points = self.reproject(D1)
+                geo = upload(buf, self.device)                  # 1 H2D
+            with P.span("svtt.stage_b"):
+                D1, _ = self.elas.stage_dense_batched(desc1, desc2, geo)
+            with P.span("svtt.reproject"):
+                dmap, points = self.reproject(D1)
             if fetch in ("host", "dmap"):
                 with P.span("svtt.fetch_dmap"):
                     dmap = to_host(dmap)
@@ -573,28 +511,13 @@ class StereoEngine:
                     yield from emit(pending.popleft().result())
         finally:
             self.host_mode = host_mode["mode"]
-            broken = host_mode["mode"] != host_workers
-            if broken or fused:
+            if host_mode["mode"] != host_workers:
                 # the broken pool goes once the call's batches are done
-                # (the next call makes a new one); the graphs of a call
-                # left early go back before the next call takes them
+                # (the next call makes a new one)
                 for f in pending:
                     f.cancel()
                 futures_wait(pending)
-            if broken:
                 self.elas.close()
-
-    def fused_graphs(self, batch: int, count: int) -> list:
-        """`count` pairs of graphs (stage A, stage B with reproject) of
-        stream_batched(fused=True) at this batch size, each with static
-        tensors and a memory pool of its own (ElasEngine.stage_graphs); made
-        on the calling thread at first need and kept until close()."""
-        have = self._fused.setdefault(batch, [])
-        while len(have) < count:
-            have.append(self.elas.stage_graphs(
-                batch, tail=lambda D1, D2: self.reproject(D1),
-                name="stream_batched(fused=True), batch %d" % batch))
-        return have[:count]
 
     # -- object fusion -------------------------------------------------------
 

@@ -1,8 +1,7 @@
 """Device stages replayed from CUDA graphs: the port's counterpart of a
 jitted stage (the JAX package's jax.jit of _stage_support_impl and
-_stage_dense_impl, and its one-dispatch modes, ElasEngine.process_jit at
-stereovision_tpu/models/elas.py:404-421 and stream_batched(fused=True) at
-stereovision_tpu/engine.py:297-336).
+_stage_dense_impl, and its one-dispatch mode, ElasEngine.process_jit at
+stereovision_tpu/models/elas.py:404-421).
 
 StageGraph runs a device function on fixed-shape tensors.  On a CUDA device
 it takes the example inputs it is given as its static inputs, runs the
@@ -20,8 +19,8 @@ same instance overwrites: the caller clones or fetches them first.
 Capture runs with capture_error_mode="thread_local": only this thread's
 calls are checked, so other threads of the process (a previous stream's
 workers, the command line's detection thread) may go on launching and
-allocating while a stage is captured.  The engine captures on the caller's
-thread before its pipeline starts (engine.py).  Python's cyclic garbage
+allocating while a stage is captured.  A ReplayTurn's graphs are
+captured on the thread that takes its first turn.  Python's cyclic garbage
 collector is paused while any capture is under way: a collection runs
 the destructors of unreachable objects on the thread it happens to run on,
 and destroying a CUDA graph there (an engine left in a reference cycle with
@@ -34,6 +33,11 @@ wrappers it calls (ops.cuda._lib.recording), and every replay adds them.
 On a CUDA device capture is mandatory: a capture or replay that fails
 raises RuntimeError naming the stage, and nothing runs the eager path
 instead.  On the CPU there is no graph: the object calls the function.
+
+ReplayTurn is the one schedule of a frame through such graphs, shared by
+ElasEngine.process_jit and StereoEngine.process_frame: the graphs made at
+the first turn, one turn at a time, and each turn's replays ordered after
+the last turn's clones of the outputs they overwrite.
 """
 
 from __future__ import annotations
@@ -138,6 +142,42 @@ class StageGraph:
                 from err
         _lib.add_counts(self.counts)
         return self.outputs
+
+
+class ReplayTurn:
+    """One frame at a time through graphs whose replays overwrite their
+    static outputs.  `with turn(make) as graphs:` takes the turn's lock
+    (callers on several threads take turns), makes the graphs with make()
+    at the first turn (kept until close()), and on the card orders the
+    current stream after the event recorded at the end of the last turn,
+    that is after its clones and fetches of the outputs that this turn's
+    replays overwrite; a turn that ends without an exception records that
+    event.  graphs: the list make() gave, empty until the first turn and
+    after close()."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.graphs = []
+        self._lock = threading.Lock()
+        self._done = None
+
+    @contextlib.contextmanager
+    def __call__(self, make: Callable[[], Sequence[StageGraph]]):
+        with self._lock:
+            if not self.graphs:
+                self.graphs.extend(make())
+            if self._done is not None:
+                torch.cuda.current_stream(self.device).wait_event(
+                    self._done)
+            yield tuple(self.graphs)
+            if self.device.type == "cuda":
+                self._done = torch.cuda.Event()
+                self._done.record()
+
+    def close(self):
+        """Drop the graphs (and their memory, once no one else holds
+        them); the next turn makes new ones."""
+        self.graphs.clear()
 
 
 # captures under way in the process, and whether the collector was on

@@ -25,12 +25,12 @@ by frame, in a spawn process pool for the streaming paths (host_pool).
 
 process_jit is the one-dispatch mode (elas.py:404-421): stage A and stage
 B each one replay of a CUDA graph (graphs.StageGraph, K1-K4 inside), the
-host middle between them; stage_graphs makes the pair for it, for
-StereoEngine.process_frame on the card and for
-StereoEngine.stream_batched(fused=True).
+host middle between them.  stage_graphs makes the pair, replay_frame runs
+a frame through it; both serve process_jit and StereoEngine.process_frame,
+each in turns of a graphs.ReplayTurn.
 
 Spans (profiling.py, while tracing is on): process_jit records each frame
-as the root "svtt.frame" with the children "svtt.stage_a" (graph A's
+as the root "svtt.frame"; replay_frame records "svtt.stage_a" (graph A's
 replay), "svtt.fetch_support", "svtt.host_mid", "svtt.upload_geometry"
 (the packing) and "svtt.stage_b" (graph B's replay with its input copy),
 none inside a captured function; frame_ids and batch_ids number the frames
@@ -55,7 +55,7 @@ import torch
 
 from .. import profiling as P
 from ..device import resolve_device
-from ..graphs import StageGraph
+from ..graphs import ReplayTurn, StageGraph
 from ..hostlib import geometry
 from ..hostlib.geometry import _pool_host_mid, _pool_init
 from ..ops import postprocess as post
@@ -97,6 +97,8 @@ class ElasEngine:
         self._host_pool = None
         self._pool_lock = threading.Lock()
         self.frame_ids, self.batch_ids = P.Ids(), P.Ids()
+        # process_jit's turns and its graphs
+        self._jit_turn = ReplayTurn(self.device)
 
     # ---- lifecycle ----------------------------------------------------------
 
@@ -105,6 +107,7 @@ class ElasEngine:
         stereo_vision.cpp:105-114) and release process_jit's graphs.
         Idempotent; both are made again on demand."""
         self.__dict__.pop("process_jit", None)
+        self._jit_turn.close()
         with self._pool_lock:
             pool, self._host_pool = self._host_pool, None
         if pool is not None:
@@ -315,7 +318,8 @@ class ElasEngine:
 
     def stage_dense_batched(self, desc1, desc2, buf):
         """(B, 16, H, W) descriptors + the (B, nbytes) packed geometry on
-        the device -> (D1, D2) (B, Ho, Wo)."""
+        the device -> (D1, D2) (B, Ho, Wo); without the batch dimension,
+        one frame's."""
         return self.stage_dense(desc1, desc2, *self.unpack_geometry(buf))
 
     # ---- public entry point -----------------------------------------------
@@ -330,84 +334,58 @@ class ElasEngine:
 
     # ---- the one-dispatch mode ------------------------------------------
 
-    def stage_graphs(self, batch: int = 0, tail=None, name="process_jit"):
-        """Stages A and B of one frame (batch 0) or of a batch as two
-        graphs.StageGraph sharing one memory pool: A(I1, I2) or A(pairs)
-        -> (desc1, desc2, d_can) is stage_support (stage_support_batched),
-        B(desc1, desc2, buf) stage_dense on the packed geometry
-        (stage_dense_batched), followed by tail(D1, D2) where given.  On
-        the card both are warmed up and captured on a blank frame and the
+    def stage_graphs(self, name="process_jit"):
+        """Stages A and B of one frame as two graphs.StageGraph sharing one
+        memory pool: A(I1, I2) -> (desc1, desc2, d_can) is stage_support,
+        B(desc1, desc2, buf) stage_dense on the packed geometry.  On the
+        card both are warmed up and captured on a blank frame and the
         geometry the host middle gives it; B reads A's outputs in place.
         On the CPU both run eagerly."""
         dev = self.device
-        shape = (self.height + self.row_pad_in, self.width)
-        if batch:
-            blank = (torch.zeros((batch, 2) + shape, dtype=torch.uint8,
-                                 device=dev),)
-            stage_a, dense = self.stage_support_batched, \
-                self.stage_dense_batched
-        else:
-            blank = tuple(torch.zeros(shape, dtype=torch.uint8, device=dev)
-                          for _ in range(2))
-            stage_a = self.stage_support
-
-            def dense(desc1, desc2, buf):
-                return self.stage_dense(desc1, desc2,
-                                        *self.unpack_geometry(buf))
-
-        def stage_b(desc1, desc2, buf):
-            out = dense(desc1, desc2, buf)
-            return tail(*out) if tail is not None else out
-
-        a = StageGraph(name + ": stage A", stage_a, blank, device=dev)
+        blank = tuple(torch.zeros((self.height + self.row_pad_in,
+                                   self.width), dtype=torch.uint8, device=dev)
+                      for _ in range(2))
+        a = StageGraph(name + ": stage A", self.stage_support, blank,
+                       device=dev)
         if a.graph is None:
-            return a, StageGraph(name + ": stage B", stage_b, device=dev)
+            return a, StageGraph(name + ": stage B",
+                                 self.stage_dense_batched, device=dev)
         desc1, desc2, d_can = a(*blank)
-        d = fetch(d_can)
-        buf = (np.stack([self.pack_geometry(self.host_mid(x)) for x in d])
-               if batch else self.pack_geometry(self.host_mid(d)))
-        return a, StageGraph(name + ": stage B", stage_b,
+        buf = self.pack_geometry(self.host_mid(fetch(d_can)))
+        return a, StageGraph(name + ": stage B", self.stage_dense_batched,
                              (desc1, desc2, upload(buf, dev)), pool=a.pool)
+
+    def replay_frame(self, graphs, I1, I2):
+        """One frame through graphs (A, B, ...) of stage_graphs: graph A,
+        one fetch of d_can, the host middle, the packed geometry, graph B
+        (the geometry copied into its static buffer).  -> B's static
+        outputs (D1, D2), which B's next replay overwrites."""
+        stage_a, stage_b = graphs[:2]
+        with P.span("svtt.stage_a"):
+            desc1, desc2, d_can = stage_a(I1, I2)
+        with P.span("svtt.fetch_support"):
+            d_can = fetch(d_can)
+        g = self.host_mid(d_can)
+        with P.span("svtt.upload_geometry"):
+            buf = self.pack_geometry(g)
+        with P.span("svtt.stage_b"):
+            return stage_b(desc1, desc2, buf)
 
     @functools.cached_property
     def process_jit(self):
         """(I1, I2) -> (D1, D2), as process, with each device stage one
         replay of a CUDA graph (the JAX package's process_jit,
-        elas.py:404-421, whose host middle runs in a pure_callback): graph
-        A, one fetch of d_can, the host middle, one packed geometry upload
-        into B's static buffer, graph B.  The graphs are made at the first
-        call (the callable's `graphs`: [A, B] once made); D1 and D2 are
-        clones on the engine's device.  Calls from several threads take
-        turns (one pair of static buffers)."""
-        lock = threading.Lock()
-        graphs = []
-        cuda = self.device.type == "cuda"
-        # the last call's clones, which the next replay (perhaps on another
-        # thread's stream) must not overtake
-        done = []
+        elas.py:404-421, whose host middle runs in a pure_callback):
+        replay_frame in the engine's turns (graphs.ReplayTurn), whose graphs
+        (the callable's `graphs`: [A, B] once made) are made at the first
+        call; D1 and D2 are clones on the engine's device."""
+        turn = self._jit_turn
 
         def run(I1, I2):
-            with lock, P.frame(self.frame_ids, "process_jit"):
-                if not graphs:
-                    graphs.extend(self.stage_graphs())
-                stage_a, stage_b = graphs
-                if done:
-                    torch.cuda.current_stream(self.device).wait_event(
-                        done.pop())
-                with P.span("svtt.stage_a"):
-                    desc1, desc2, d_can = stage_a(I1, I2)
-                with P.span("svtt.fetch_support"):
-                    d_can = fetch(d_can)
-                g = self.host_mid(d_can)
-                with P.span("svtt.upload_geometry"):
-                    buf = self.pack_geometry(g)
-                with P.span("svtt.stage_b"):
-                    D1, D2 = stage_b(desc1, desc2, buf)
-                    D1, D2 = D1.clone(), D2.clone()
-                if cuda:
-                    done.append(torch.cuda.Event())
-                    done[0].record()
-                return D1, D2
+            with turn(self.stage_graphs) as graphs, \
+                    P.frame(self.frame_ids, "process_jit"):
+                D1, D2 = self.replay_frame(graphs, I1, I2)
+                return D1.clone(), D2.clone()
 
-        run.graphs = graphs
+        run.graphs = turn.graphs
         return run

@@ -26,6 +26,8 @@ import stereovision_tpu.engine as jengine
 from stereovision_tpu_torch import capi
 from stereovision_tpu_torch.synthetic import stereo_pair
 
+from torch_threads import _one_intra_op_thread  # noqa: F401 (autouse)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 W, H = 160, 120
 

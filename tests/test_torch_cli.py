@@ -45,6 +45,8 @@ from stereovision_tpu_torch.models import yolo
 from stereovision_tpu_torch.ops.reproject import box_centroids
 from stereovision_tpu_torch.synthetic import darknet_weights, stereo_pair
 
+from torch_threads import _one_intra_op_thread  # noqa: F401 (autouse)
+
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CALIB = osp.join(ROOT, "stereovision_tpu_torch", "data",
                  "kitti_2011_09_26.yml")
@@ -54,16 +56,6 @@ FRAMES = 3
 LINE = re.compile(r"^\(FPS=\d+\.\d{6}\) \((\d+), (\d+)\) \(t_t=\d+\.\d{6}, "
                   r"dmap_t=\d+\.\d{6}, pc_t=\d+\.\d{6}\)$")
 AVG = re.compile(r"^AVG_FPS=\d+\.\d{6}$")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """One intra-op thread a torch call while this module runs: the
-    frames are small, and other test workers share the machine."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _port(jp):

@@ -35,6 +35,8 @@ from stereovision_tpu_torch.engine import StereoEngine, bgr_to_gray
 from stereovision_tpu_torch.models.elas import ElasEngine
 from stereovision_tpu_torch.synthetic import stereo_pair
 
+from torch_threads import _one_intra_op_thread  # noqa: F401 (autouse)
+
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CALIB = osp.join(ROOT, "stereovision_tpu_torch", "data",
                  "kitti_2011_09_26.yml")
@@ -45,18 +47,6 @@ PRESETS = {
     "app_sub": lambda: j_app_params(subsampling=True).replace(disp_max=63),
     "robotics_sub": lambda: j_robotics_params(disp_max=63, subsampling=True),
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """One intra-op thread a torch call while this module runs (and the
-    modules that import this fixture): other test workers share the
-    machine's cores, and oversubscribed intra-op threads slowed the 1242x375
-    cases many times over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _port(jp):

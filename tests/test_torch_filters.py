@@ -27,21 +27,13 @@ from stereovision_tpu_torch.models.elas import ElasEngine
 from stereovision_tpu_torch.ops import filters as pfilters
 from stereovision_tpu_torch.synthetic import stereo_pair
 
+from torch_threads import _one_intra_op_thread  # noqa: F401 (autouse)
+
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CALIB = osp.join(ROOT, "stereovision_tpu_torch", "data",
                  "kitti_2011_09_26.yml")
 W, H = 160, 120
 FRAMES = 3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """One intra-op thread a torch call while this module runs: the
-    frames are small, and other test workers share the machine."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _port(jp):

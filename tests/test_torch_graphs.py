@@ -7,20 +7,21 @@ tests/test_engine.py runs it) and the port's process bit for bit, at
 160x120 in four presets, at full resolution and subsampled.  StageGraph's
 capture path and launch accounting run on a stand-in for
 torch.cuda.CUDAGraph, as does the pause of the cyclic collector while
-captures on two threads overlap.  stream_batched(fused=True) is held in tests/test_torch_stream.py.
+captures on two threads overlap.
 
 StereoEngine.process_frame runs its three stages (A, B and the
 reprojection) through StageGraph: on the CPU eagerly, equal to
 ElasEngine.process followed by reproject in every fetch mode, the root
-svtt.frame counting no graph; on a stand-in whose replays overwrite their
-static outputs, a frame's tensors outlive the next frames, two threads
-each get their own frames, and close() drops the graphs.
+svtt.frame counting no graph.  On a stand-in whose replays overwrite their
+static outputs, process_frame and process_jit, which share one replay
+turn (graphs.ReplayTurn), each hand back tensors that outlive the next
+frames, give two threads their own frames, and drop their graphs on
+close().
 
 The tests marked `cuda` (skipped without a card) capture and replay the
-stages on the card: process_jit and the stages of a batch of 3 equal to
-the eager path, two graph pairs replayed from two threads, the launch
-counters after replays, stream_batched(fused=True) equal to
-process_frame, process_frame's replays equal to the eager stages at
+stages on the card: process_jit equal to the eager path, two graph pairs
+replayed from two threads, the launch counters after replays,
+process_frame's replays equal to the eager stages at
 1242x375 (full resolution and subsampled, every fetch mode, the launch
 counters alike) and released by close(), and a function that cannot be
 captured raising instead of running eagerly.  The JAX package is imported inside the tests that use
@@ -46,6 +47,8 @@ from stereovision_tpu_torch.ops.cuda import (_lib, ccl_cu, lr_cu,
                                              matching_cu, support_cu)
 from stereovision_tpu_torch.params import app_params, robotics_params
 from stereovision_tpu_torch.synthetic import stereo_pair
+
+from torch_threads import _one_intra_op_thread  # noqa: F401 (autouse)
 
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CALIB = osp.join(ROOT, "stereovision_tpu_torch", "data",
@@ -422,7 +425,7 @@ def test_process_frame_equals_the_eager_stages(small, fetch):
     eng, pairs, refs = small
     for pair, ref in zip(pairs, refs):
         _check_frame(eng.process_frame(*pair, fetch=fetch), ref, fetch)
-    assert [g.graph for g in eng.frame_graphs()] == [None] * 3
+    assert [g.graph for g in eng.frame_turn.graphs] == [None] * 3
 
 
 def test_process_frame_root_counts_no_graph_on_the_cpu(small):
@@ -452,7 +455,7 @@ def test_process_frame_outputs_outlive_the_next_replay(small, replaying,
     _, pairs, refs = small
     eng = StereoEngine(CALIB, W, H, device="cpu")
     outs = [eng.process_frame(*pair, fetch=fetch) for pair in pairs]
-    graphs = eng.frame_graphs()
+    graphs = tuple(eng.frame_turn.graphs)
     # stage A replayed once more for stage B's capture
     assert [g.graph.replays for g in graphs] == [len(pairs) + 1,
                                                  len(pairs), len(pairs)]
@@ -465,30 +468,61 @@ def test_process_frame_outputs_outlive_the_next_replay(small, replaying,
         if fetch == "device":
             _eq(out["dmap"], dmap.numpy())
     eng.close()
-    assert eng._frame_graphs is None
+    assert eng.frame_turn.graphs == []
     _check_frame(eng.process_frame(*pairs[1], fetch="device"), refs[1],
                  "device")
     assert all(g.graph.begun == 1 and g.graph.replays == 1
-               for g in eng.frame_graphs()[1:])
-    assert not any(a is b for a, b in zip(graphs, eng.frame_graphs()))
+               for g in eng.frame_turn.graphs[1:])
+    assert not any(a is b for a, b in zip(graphs, eng.frame_turn.graphs))
     eng.close()
 
 
-def test_process_frame_two_threads_each_get_their_frames(small, replaying):
-    """Two threads call one engine whose graphs reuse their static
-    outputs, 3 frames each, with a short switch interval: every frame's
-    tensors are that frame's."""
+@pytest.fixture(scope="module")
+def small_jit(small):
+    """small's pairs in gray, and ElasEngine.process's (D1, D2) of each,
+    cloned."""
+    eng, pairs, _ = small
+    grays = [tuple(bgr_to_gray(x) for x in pair) for pair in pairs]
+    return grays, [tuple(x.clone() for x in eng.elas.process(*g))
+                   for g in grays]
+
+
+def test_process_jit_outputs_outlive_the_next_replay(small_jit, replaying):
+    """process_jit takes the same turns on the same stand-in: the D1 and
+    D2 that a frame returns keep its values after the next frames'
+    replays; each frame replays each graph once; close() drops the
+    graphs and the next call captures new ones."""
+    grays, refs = small_jit
+    elas = ElasEngine(app_params(), W, H, device="cpu")
+    outs = [elas.process_jit(*g) for g in grays]
+    graphs = tuple(elas.process_jit.graphs)
+    assert [g.graph.replays for g in graphs] == [len(grays) + 1,
+                                                 len(grays)]
+    assert graphs[1].graph.kwargs["pool"] == graphs[0].pool
+    for out, ref in zip(outs, refs):
+        for a, b in zip(out, ref):
+            _eq(a, b.numpy())
+    made = elas.process_jit.graphs
+    elas.close()
+    assert made == [] and "process_jit" not in vars(elas)
+    for a, b in zip(elas.process_jit(*grays[1]), refs[1]):
+        _eq(a, b.numpy())
+    new = elas.process_jit.graphs
+    assert new[1].graph.begun == 1 and new[1].graph.replays == 1
+    assert not any(a is b for a, b in zip(graphs, new))
+    elas.close()
+
+
+def _two_threads(call):
+    """call(t, k) for k = 0, 1, 2 on each of two threads t = 0, 1 at once,
+    with a short switch interval -> {(t, k): what the call returned}."""
     import sys
-    _, pairs, refs = small
-    eng = StereoEngine(CALIB, W, H, device="cpu")
     got, errors = {}, []
 
     def work(t):
         try:
             for k in range(3):
-                i = (t + k) % len(pairs)
-                got[t, k] = (i, eng.process_frame(*pairs[i],
-                                                  fetch="device"))
+                got[t, k] = call(t, k)
         except Exception as err:            # reported by the main thread
             errors.append(err)
 
@@ -506,10 +540,42 @@ def test_process_frame_two_threads_each_get_their_frames(small, replaying):
     assert not any(t.is_alive() for t in threads)
     assert not errors, errors
     assert len(got) == 6
-    for i, out in got.values():
+    return got
+
+
+def test_process_frame_two_threads_each_get_their_frames(small, replaying):
+    """Two threads call one engine whose graphs reuse their static
+    outputs, 3 frames each, with a short switch interval: every frame's
+    tensors are that frame's."""
+    _, pairs, refs = small
+    eng = StereoEngine(CALIB, W, H, device="cpu")
+
+    def call(t, k):
+        i = (t + k) % len(pairs)
+        return i, eng.process_frame(*pairs[i], fetch="device")
+
+    for i, out in _two_threads(call).values():
         _check_frame(out, refs[i], "device")
-    assert [g.graph.replays for g in eng.frame_graphs()] == [7, 6, 6]
+    assert [g.graph.replays for g in eng.frame_turn.graphs] == [7, 6, 6]
     eng.close()
+
+
+def test_process_jit_two_threads_each_get_their_frames(small_jit,
+                                                       replaying):
+    """process_jit's turn alike: two threads, 3 frames each, every
+    frame's D1 and D2 that frame's."""
+    grays, refs = small_jit
+    elas = ElasEngine(app_params(), W, H, device="cpu")
+
+    def call(t, k):
+        i = (t + k) % len(grays)
+        return i, elas.process_jit(*grays[i])
+
+    for i, out in _two_threads(call).values():
+        for a, b in zip(out, refs[i]):
+            _eq(a, b.numpy())
+    assert [g.graph.replays for g in elas.process_jit.graphs] == [7, 6]
+    elas.close()
 
 
 # ---- on the card -----------------------------------------------------------
@@ -557,29 +623,6 @@ def test_process_jit_on_the_card_equals_eager(cuda, preset):
         C1, C2 = cpu.process(*f)
         assert torch.equal(D1, E1) and torch.equal(D2, E2)
         assert torch.equal(D1.cpu(), C1) and torch.equal(D2.cpu(), C2)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("preset", ["app", "app_sub"])
-def test_stage_graphs_of_a_batch_equal_eager(cuda, preset):
-    """A batch of 3 through graphs A and B equals the eager batched
-    stages, stage by stage; each replay adds one launch a kernel."""
-    p = _port_params(preset)
-    eng = ElasEngine(p, W, H, device=cuda)
-    stage_a, stage_b = eng.stage_graphs(3)
-    assert stage_a.counts == [(vars(support_cu), "launches")]
-    pairs = np.stack([np.stack(_gray_pair(s)) for s in range(3)])
-    _zero_counts()
-    d1, d2, dc = stage_a(pairs)
-    e1, e2, edc = eng.stage_support_batched(pairs)
-    for a, b in ((d1, e1), (d2, e2), (dc, edc)):
-        assert torch.equal(a, b)
-    buf = np.stack([eng.pack_geometry(eng.host_mid(x))
-                    for x in edc.cpu().numpy()])
-    D1, D2 = stage_b(d1, d2, buf)
-    E1, E2 = eng.stage_dense_batched(e1, e2, torch.from_numpy(buf).to(cuda))
-    assert torch.equal(D1, E1) and torch.equal(D2, E2)
-    assert _counts() == {k: 2 * v for k, v in _per_frame(p, 1).items()}
 
 
 @pytest.mark.cuda
@@ -632,30 +675,6 @@ def test_launch_counters_after_replays(cuda):
         d1, d2, dc = stage_a(*f)
         stage_b(d1, d2, eng.pack_geometry(eng.host_mid(dc.cpu().numpy())))
     assert _counts() == _per_frame(p, 5)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("fetch", ["host", "device"])
-def test_stream_batched_fused_on_the_card(cuda, fetch):
-    """stream_batched(fused=True): 5 frames at batch 2 (a padded last
-    batch) equal to process_frame, one launch a batch."""
-    p = _port_params("app")
-    eng = StereoEngine(CALIB, W, H, params=p, device=cuda)
-    frames = [stereo_pair(W, H, s)[:2] for s in range(5)]
-    refs = [eng.process_frame(lf, rf) for lf, rf in frames]
-    list(eng.stream_batched(iter(frames), batch=2, fused=True,
-                            host_workers="thread"))
-    _zero_counts()
-    outs = list(eng.stream_batched(iter(frames), batch=2, fetch=fetch,
-                                   fused=True, host_workers="thread"))
-    assert _counts() == _per_frame(p, 3)
-    for o, r in zip(outs, refs):
-        dmap = o["dmap"].cpu().numpy() if fetch == "device" else o["dmap"]
-        pts = o["points"]
-        pts = pts.cpu().numpy().reshape(-1, 3) if fetch == "device" else pts
-        assert np.array_equal(dmap, r["dmap"])
-        assert np.array_equal(pts, r["points"])
-    eng.close()
 
 
 @pytest.mark.cuda
@@ -727,7 +746,7 @@ def test_process_frame_on_the_card_equals_eager(cuda, subsampling):
     torch.cuda.synchronize()
     eager = _counts()
     eng.process_frame(*pairs[0])
-    assert all(g.graph is not None for g in eng.frame_graphs())
+    assert all(g.graph is not None for g in eng.frame_turn.graphs)
     P.trace_stop()
     P.trace_drain()
     P.trace_start()
@@ -755,16 +774,16 @@ def test_process_frame_close_releases_its_graphs(cuda):
     pair = stereo_pair(W, H, seed=1)[:2]
     ref = _eager_frame(eng, *pair)
     first = eng.process_frame(*pair, fetch="device")
-    graphs = eng.frame_graphs()
+    graphs = tuple(eng.frame_turn.graphs)
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated(cuda)
     eng.close()
-    assert eng._frame_graphs is None
+    assert eng.frame_turn.graphs == []
     del graphs
     gc.collect()
     assert torch.cuda.memory_allocated(cuda) < held
     second = eng.process_frame(*pair, fetch="device")
-    assert all(g.graph is not None for g in eng.frame_graphs())
+    assert all(g.graph is not None for g in eng.frame_turn.graphs)
     for out in (first, second):
         _check_frame(out, ref, "device")
     eng.close()

@@ -33,20 +33,9 @@ from stereovision_tpu_torch.ops import postprocess as post
 from stereovision_tpu_torch.ops.cuda import lr_cu, matching_cu, support_cu
 
 import hard_inputs
+from torch_threads import _one_intra_op_thread  # noqa: F401 (autouse)
 
 MODES = ["full", "subsampled"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """One intra-op thread a torch call while this module runs: the maps
-    are small, the plain CCL iterates many small ops, and a team of
-    threads a call on a machine that the other test workers share costs
-    far more than it saves."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _params(mode, **kw):

@@ -54,6 +54,8 @@ from stereovision_tpu_torch.models.elas import ElasEngine
 from stereovision_tpu_torch.params import app_params, robotics_params
 from stereovision_tpu_torch.synthetic import stereo_pair
 
+from torch_threads import _one_intra_op_thread  # noqa: F401 (autouse)
+
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CALIB = osp.join(ROOT, "stereovision_tpu_torch", "data",
                  "kitti_2011_09_26.yml")

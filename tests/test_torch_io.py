@@ -32,6 +32,8 @@ from stereovision_tpu_torch.io import kitti as pkitti
 from stereovision_tpu_torch.io import pgm as ppgm
 from stereovision_tpu_torch.io.png import read_png
 
+from torch_threads import _one_intra_op_thread  # noqa: F401 (autouse)
+
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 JAX_RIGS = osp.join(ROOT, "stereovision_tpu", "data", "calibration")
 PORT_RIGS = osp.join(ROOT, "stereovision_tpu_torch", "data", "calibration")

@@ -36,6 +36,7 @@ from stereovision_tpu_torch.params import app_params, robotics_params
 from stereovision_tpu_torch.synthetic import darknet_weights, stereo_pair
 
 import hard_inputs
+from torch_threads import _one_intra_op_thread  # noqa: F401 (autouse)
 
 PRESETS = {
     "app": lambda: app_params().replace(disp_max=63),

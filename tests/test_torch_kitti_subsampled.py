@@ -6,7 +6,7 @@ that a test worker of its own runs it."""
 
 import pytest
 
-from test_torch_engine import _one_intra_op_thread  # noqa: F401 (autouse)
+from torch_threads import _one_intra_op_thread  # noqa: F401 (autouse)
 from test_torch_engine import elas_full_width_kitti
 
 

@@ -36,18 +36,9 @@ from stereovision_tpu_torch.parallel.mesh import make_mesh
 from stereovision_tpu_torch.parallel.shard import ShardedStereoPipeline
 from stereovision_tpu_torch.synthetic import stereo_pair
 
+from torch_threads import _one_intra_op_thread  # noqa: F401 (autouse)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread in this module: the tests run beside other
-    test processes, and oversubscribed threads slow small ops down many
-    times over."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _free_port() -> int:

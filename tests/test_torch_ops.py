@@ -43,6 +43,8 @@ from stereovision_tpu_torch.ops.cuda import (ccl_cu, lr_cu, matching_cu,
 from stereovision_tpu_torch.ops.fma import fma32
 from stereovision_tpu_torch.synthetic import stereo_pair
 
+from torch_threads import _one_intra_op_thread  # noqa: F401 (autouse)
+
 W, H = 160, 120
 PRESETS = {
     "app": lambda: j_app_params().replace(disp_max=63),

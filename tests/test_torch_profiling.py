@@ -41,6 +41,8 @@ from stereovision_tpu_torch.engine import StereoEngine, StereoVision
 from stereovision_tpu_torch.hostlib import geometry, raster
 from stereovision_tpu_torch.synthetic import stereo_pair
 
+from torch_threads import _one_intra_op_thread  # noqa: F401 (autouse)
+
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CALIB = osp.join(ROOT, "stereovision_tpu_torch", "data",
                  "kitti_2011_09_26.yml")
@@ -549,14 +551,11 @@ def test_host_middle_and_its_workers_import_no_torch():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("entry", ["process_frame", "process_jit",
-                                   "stream_batched_fused"])
+@pytest.mark.parametrize("entry", ["process_frame", "process_jit"])
 def test_spans_on_the_card(cuda, entry):
     """On the card, with a profiler running: the same frames with spans on
     as off (graph replays included), and device work traced.  The spans of
-    the caller's thread show in the profiler's trace as CPU events; those
-    of stream_batched's pipeline threads do not (torch.profiler records
-    record_function on the thread that started it)."""
+    the caller's thread show in the profiler's trace as CPU events."""
     from torch.profiler import ProfilerActivity, profile
     from stereovision_tpu_torch.engine import bgr_to_gray
     pairs = [stereo_pair(W, H, seed=s)[:2] for s in (3, 4, 5)]
@@ -564,12 +563,8 @@ def test_spans_on_the_card(cuda, entry):
     def run(eng):
         if entry == "process_frame":
             return [eng.process_frame(l, r)["dmap"] for l, r in pairs]
-        if entry == "process_jit":
-            return [eng.elas.process_jit(bgr_to_gray(l), bgr_to_gray(r))[0]
-                    .cpu().numpy() for l, r in pairs]
-        return [o["dmap"] for o in eng.stream_batched(
-            iter(pairs), batch=2, fetch="host", host_workers="thread",
-            fused=True)]
+        return [eng.elas.process_jit(bgr_to_gray(l), bgr_to_gray(r))[0]
+                .cpu().numpy() for l, r in pairs]
 
     with StereoEngine(CALIB, W, H) as eng:
         want = run(eng)
@@ -586,11 +581,9 @@ def test_spans_on_the_card(cuda, entry):
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
     names = collections.Counter(s.name for s in spans)
-    assert names["svtt.stage_a"] == names["svtt.stage_b"] == (
-        2 if entry == "stream_batched_fused" else 3)
-    assert names["svtt.host_mid"] == 3 + (entry == "stream_batched_fused")
+    assert names["svtt.stage_a"] == names["svtt.stage_b"] == 3
+    assert names["svtt.host_mid"] == 3
     cpu = {e.name for e in prof.events()
            if e.device_type.name == "CPU" and e.name.startswith("svtt.")}
-    if entry != "stream_batched_fused":
-        assert {"svtt.stage_a", "svtt.stage_b", "svtt.host_mid"} <= cpu
+    assert {"svtt.stage_a", "svtt.stage_b", "svtt.host_mid"} <= cpu
     assert any(e.device_type.name == "CUDA" for e in prof.events())

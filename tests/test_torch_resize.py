@@ -23,6 +23,8 @@ import torch
 
 from stereovision_tpu_torch.ops.reproject import linear_taps, resize_linear
 
+from torch_threads import _one_intra_op_thread  # noqa: F401 (autouse)
+
 
 def _jax_resize(x, shape):
     return np.asarray(jax.jit(lambda a: jax.image.resize(

@@ -38,6 +38,8 @@ from stereovision_tpu_torch.models.elas import ElasEngine
 from stereovision_tpu_torch.params import robotics_params
 from stereovision_tpu_torch.synthetic import degenerate_frames
 
+from torch_threads import _one_intra_op_thread  # noqa: F401 (autouse)
+
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CASES = degenerate_frames()
 GEOMETRY = ("pts", "tris_l", "tris_r", "tri_l", "tri_r")

@@ -54,6 +54,8 @@ from stereovision_tpu_torch.ops import postprocess as post
 from stereovision_tpu_torch.params import app_params
 from stereovision_tpu_torch.synthetic import stereo_pair
 
+from torch_threads import _one_intra_op_thread  # noqa: F401 (autouse)
+
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CALIB = osp.join(ROOT, "stereovision_tpu_torch", "data",
                  "kitti_2011_09_26.yml")
@@ -67,16 +69,6 @@ SWEEP_BATCHES = {
     1.9: (28, 14), 2.0: (32, 16), 2.1: (32, 16), 2.2: (32, 16),
     2.3: (32, 16), 2.4: (32, 16), 2.5: (32, 16), 2.6: (32, 16),
     2.7: (32, 16), 2.8: (32, 16), 2.9: (32, 16), 3.0: (32, 16)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """One intra-op thread a torch call while this module runs: other test
-    workers share the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

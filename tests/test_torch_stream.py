@@ -11,12 +11,11 @@ and the 192x144 subsampled preset (stage B on the 72x96 lattice).
   (c) host_mid_standalone equals the JAX package's, warnings included;
   (d) stream and stream_batched (5 frames at batch 2, so the last batch is
       padded; threads and the spawn pool; every fetch mode) yield the JAX
-      engine's dmap and points; the pool falls back to threads only when
-      its processes cannot start; stream_batched(fused=True), the
-      one-dispatch mode, yields the JAX engine's stream_batched(fused=True)
-      and the port's process_frame, in every fetch mode with either host
-      workers, re-emits the workers' warnings, and runs again after a call
-      left early;
+      engine's dmap and points, stream_batched those of both of the JAX
+      engine's schedules (fused=False, and fused=True, its one-dispatch
+      mode, which the port leaves out); the pool falls back to threads
+      only when its processes cannot start; stream_batched re-emits the
+      workers' warnings and runs again after a call left early;
   (e) close() and the context manager release the worker threads and the
       pool; the launch counters, the pool and the prior table hold under
       many threads.
@@ -60,6 +59,8 @@ from stereovision_tpu_torch.ops.cuda import (_lib, ccl_cu, lr_cu,
                                              matching_cu, support_cu)
 from stereovision_tpu_torch.synthetic import stereo_pair
 
+from torch_threads import _one_intra_op_thread  # noqa: F401 (autouse)
+
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CALIB = osp.join(ROOT, "stereovision_tpu_torch", "data",
                  "kitti_2011_09_26.yml")
@@ -71,17 +72,6 @@ MODES = {
 }
 BATCH = 3
 FRAMES = 5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """One intra-op thread a torch call while this module runs: the
-    frames are small, and the pipelines' threads would each start a team
-    of threads on a machine the other test workers share."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _port(jp):
@@ -314,19 +304,21 @@ def test_host_module_imports_no_torch():
 
 @pytest.fixture(scope="module", params=sorted(MODES))
 def streams(request):
-    """JAX's stream and stream_batched (batch 2) over the same 5 frames, and
-    a port engine (closed at the end)."""
+    """JAX's stream and stream_batched (batch 2; "batched" unfused, "fused"
+    its one-dispatch mode) over the same 5 frames, and a port engine
+    (closed at the end)."""
     w, h, make = MODES[request.param]
     jp = make()
     frames = _frames(w, h, FRAMES)
     with JaxStereo(CALIB, w, h, params=jp, use_pallas=False) as je:
         ref_stream = list(je.stream(iter(frames)))
-        ref_batched = list(je.stream_batched(iter(frames), batch=2,
-                                             fetch="host",
-                                             host_workers="thread"))
+        ref_batched, ref_fused = (
+            list(je.stream_batched(iter(frames), batch=2, fetch="host",
+                                   host_workers="thread", fused=fused))
+            for fused in (False, True))
     eng = StereoEngine(CALIB, w, h, params=_port(jp), device="cpu")
     yield dict(frames=frames, stream=ref_stream, batched=ref_batched,
-               eng=eng)
+               fused=ref_fused, eng=eng)
     eng.close()
 
 
@@ -347,14 +339,23 @@ def test_stream_matches_jax(streams, fetch):
                       np.ndarray if fetch == "host" else torch.Tensor)
 
 
+@pytest.mark.parametrize("jax_schedule", ["batched", "fused"])
+@pytest.mark.parametrize("host_workers", ["thread", "process"])
 @pytest.mark.parametrize("fetch", ["host", "dmap", "device"])
-def test_stream_batched_threads_match_jax(streams, fetch):
+def test_stream_batched_matches_jax(streams, fetch, host_workers,
+                                    jax_schedule):
+    """The port's one batched schedule serves the callers of both of the
+    JAX engine's: in every fetch mode, with the host middle on threads or
+    in the spawn pool, it yields the frames of JAX's stream_batched with
+    fused=False ("batched") and with fused=True ("fused")."""
     eng = streams["eng"]
     outs = list(eng.stream_batched(iter(streams["frames"]), batch=2,
                                    fetch=fetch, pipeline_depth=3,
-                                   host_workers="thread"))
-    assert eng.host_mode == "thread"
-    _same_frames(outs, streams["batched"])
+                                   host_workers=host_workers))
+    assert eng.host_mode == host_workers
+    if host_workers == "process":
+        assert eng.elas._host_pool is not None
+    _same_frames(outs, streams[jax_schedule])
     kinds = {"host": (np.ndarray, np.ndarray),
              "dmap": (np.ndarray, torch.Tensor),
              "device": (torch.Tensor, torch.Tensor)}[fetch]
@@ -363,13 +364,16 @@ def test_stream_batched_threads_match_jax(streams, fetch):
     assert outs[-1]["timings"]["t_t"] > 0
 
 
-def test_stream_batched_process_pool_matches_jax(streams):
+def test_stream_batched_runs_again_after_a_call_left_early(streams):
+    """A call closed after its first frame leaves the engine whole: the
+    next call gets every frame."""
     eng = streams["eng"]
-    outs = list(eng.stream_batched(iter(streams["frames"]), batch=2,
-                                   fetch="host", pipeline_depth=3,
-                                   host_workers="process"))
-    assert eng.host_mode == "process"
-    assert eng.elas._host_pool is not None
+    run = dict(batch=2, fetch="host", pipeline_depth=3,
+               host_workers="thread")
+    gen = eng.stream_batched(iter(streams["frames"]), **run)
+    next(gen)
+    gen.close()
+    outs = list(eng.stream_batched(iter(streams["frames"]), **run))
     _same_frames(outs, streams["batched"])
 
 
@@ -472,74 +476,6 @@ def test_launch_counters_and_shared_state_under_threads():
     assert all(t is priors[0] for t in priors)
     eng.close()
     assert eng._host_pool is None
-
-
-@pytest.fixture(scope="module", params=sorted(MODES))
-def fused(request):
-    """JAX's stream_batched(fused=True) (batch 2) over the 5 frames, the
-    port's process_frame of each, and a port engine (closed at the end)."""
-    w, h, make = MODES[request.param]
-    jp = make()
-    frames = _frames(w, h, FRAMES)
-    with JaxStereo(CALIB, w, h, params=jp, use_pallas=False) as je:
-        ref = list(je.stream_batched(iter(frames), batch=2, fetch="host",
-                                     host_workers="thread", fused=True))
-    eng = StereoEngine(CALIB, w, h, params=_port(jp), device="cpu")
-    single = [{"dmap": o["dmap"], "points": o["points"]}
-              for o in (eng.process_frame(lf, rf) for lf, rf in frames)]
-    yield dict(frames=frames, ref=ref, single=single, eng=eng)
-    eng.close()
-
-
-@pytest.mark.parametrize("host_workers", ["thread", "process"])
-@pytest.mark.parametrize("fetch", ["host", "dmap", "device"])
-def test_stream_batched_fused_matches_jax(fused, fetch, host_workers):
-    eng = fused["eng"]
-    outs = list(eng.stream_batched(iter(fused["frames"]), batch=2,
-                                   fetch=fetch, pipeline_depth=2,
-                                   host_workers=host_workers, fused=True))
-    assert eng.host_mode == host_workers
-    _same_frames(outs, fused["ref"])
-    _same_frames(outs, fused["single"])
-    kinds = {"host": (np.ndarray, np.ndarray),
-             "dmap": (np.ndarray, torch.Tensor),
-             "device": (torch.Tensor, torch.Tensor)}[fetch]
-    assert isinstance(outs[-1]["dmap"], kinds[0])
-    assert isinstance(outs[-1]["points"], kinds[1])
-    assert outs[-1]["timings"]["t_t"] > 0
-    assert len(eng._fused[2]) >= 2           # a graph pair a tail
-
-
-def test_stream_batched_fused_runs_again_after_a_call_left_early(fused):
-    """A fused call closed after its first frame hands its graph pairs
-    back: the next call gets every frame."""
-    eng = fused["eng"]
-    gen = eng.stream_batched(iter(fused["frames"]), batch=2, fetch="host",
-                             pipeline_depth=3, host_workers="thread",
-                             fused=True)
-    next(gen)
-    gen.close()
-    outs = list(eng.stream_batched(iter(fused["frames"]), batch=2,
-                                   fetch="host", pipeline_depth=3,
-                                   host_workers="thread", fused=True))
-    _same_frames(outs, fused["single"])
-
-
-def test_stream_batched_fused_reemits_worker_warnings():
-    """The fused mode's host middle is the same helper: a warning captured
-    in a host worker reaches the caller, prefixed as in the JAX
-    package."""
-    jp = j_robotics_params(disp_max=63)
-    eng = StereoEngine(CALIB, 160, 120, params=_port(jp), device="cpu")
-    eng.elas.n_max = 8           # a tiny point cap: support is thinned
-    eng.elas.t_max = 2 * 8 + 8
-    with pytest.warns(UserWarning, match="host geometry worker: support "
-                      "points thinned"):
-        outs = list(eng.stream_batched(iter(_frames(160, 120, 3)), batch=2,
-                                       fetch="host", host_workers="thread",
-                                       fused=True))
-    assert len(outs) == 3
-    eng.close()
 
 
 # ---- (e) lifecycle -------------------------------------------------------------

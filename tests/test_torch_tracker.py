@@ -12,6 +12,8 @@ from stereovision_tpu.models import bayesian as jbayes
 
 from stereovision_tpu_torch.models import bayesian
 
+from torch_threads import _one_intra_op_thread  # noqa: F401 (autouse)
+
 
 def _sequence(seed, frames=30):
     """Per frame a list of (x, y, w, h, conf): a few objects moving at

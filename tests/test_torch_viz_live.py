@@ -45,6 +45,8 @@ from stereovision_tpu_torch import font
 from stereovision_tpu_torch import viz_live as P
 from stereovision_tpu_torch.models.bayesian import Detection
 
+from torch_threads import _one_intra_op_thread  # noqa: F401 (autouse)
+
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 FONT = cv2.FONT_HERSHEY_SIMPLEX
 

@@ -29,6 +29,8 @@ from stereovision_tpu_torch.models import yolo
 from stereovision_tpu_torch.models.yolo import YoloV4Tiny
 from stereovision_tpu_torch.synthetic import darknet_weights, stereo_pair
 
+from torch_threads import _one_intra_op_thread  # noqa: F401 (autouse)
+
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 RTOL, ATOL = 1e-5, 1e-6
 

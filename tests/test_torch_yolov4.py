@@ -31,6 +31,8 @@ from stereovision_tpu_torch.models import yolo
 from stereovision_tpu_torch.models.yolo import YoloV4Tiny
 from stereovision_tpu_torch.synthetic import darknet_weights, stereo_pair
 
+from torch_threads import _one_intra_op_thread  # noqa: F401 (autouse)
+
 ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 CALIB = osp.join(ROOT, "stereovision_tpu_torch", "data",
                  "kitti_2011_09_26.yml")
@@ -46,16 +48,6 @@ RTOL, ATOL = 2e-5, 2e-6
 # frame at 96x96 with 3 classes, each decision far from flipping
 SHIFT = -0.75
 W, H = 160, 120
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """One intra-op thread a torch call while this module runs: other test
-    workers share the machine."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def narrowed(div=8, classes=3, size=96):
