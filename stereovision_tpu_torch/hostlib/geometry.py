@@ -12,18 +12,22 @@ native step runs its NumPy version (the span coding: np.where, the lattice
 slice and encode_tri_spans, the native coder's oracle, equal byte for byte).
 
 This module imports no torch: the host-geometry process pool's spawned
-workers import it (and hostlib.raster, params, profiling) and nothing else
-of the package.
+workers and the side worker import it (and hostlib.raster, params,
+profiling) and nothing else of the package.
 
 Spans (profiling.py; recorded only while tracing is on): host_mid opens
 "svtt.host_mid" with the counts support (points after the filters, corners
 included), thinned (the points found where more than the cap were, else
-0), tris_l, tris_r, runs_max (the span code's longest row, against s_max)
-and native (1 where the C++ library loaded, 0 on the NumPy fallbacks); its
-children are "svtt.host_mid.filters", then "svtt.host_mid.delaunay",
-"svtt.host_mid.raster" and "svtt.host_mid.span_code" once an image each,
-the last with the counts runs (its longest row) and native (1 where the
-C++ coder ran, 0 on encode_tri_spans).
+0), tris_l, tris_r, runs_max (the span code's longest row, against s_max),
+native (1 where the C++ library loaded, 0 on the NumPy fallbacks) and
+side (1 where the right image's half ran in a side worker, 0 where it ran
+in this process); its children are "svtt.host_mid.filters", then
+"svtt.host_mid.delaunay", "svtt.host_mid.raster" and
+"svtt.host_mid.span_code" an image each (host_side: the left's, then the
+right's), the last with the counts runs (its longest row) and native (1
+where the C++ coder ran, 0 on encode_tri_spans).  Under side 1 the right
+image's three come from the side worker's process, overlapping the
+left's, and "svtt.host_mid.join" is the wait for them (hostlib/side.py).
 A pool worker records them when the call asks (_pool_host_mid) and hands
 them back under "spans".
 
@@ -112,20 +116,15 @@ def triangulate(pts: np.ndarray, right_image: bool) -> np.ndarray:
     return tri.simplices.astype(np.int32)
 
 
-def host_geometry(d_can: np.ndarray, p: ElasParams, width: int, height: int,
-                  rasterize, n_cap: Optional[int] = None,
-                  notes: Optional[List[str]] = None):
-    """Host middle stage: support grid -> support points, triangles and
-    triangle-id maps (the JAX host_geometry without its f64 oracle planes,
-    which the engine never reads).
-
-    n_cap: hard cap on support points (the engine's pad size); overflow is
-    thinned UNIFORMLY before triangulation so triangle indices stay
-    consistent with the shipped point list.  notes: a list that takes the
-    thinning's warning in place of the warnings module.
-
-    Returns dict with pts (N, 3) int32, tris_l/r (T, 3) int32 and
-    tri_id_l/r (H, W) int32."""
+def support_points(d_can: np.ndarray, p: ElasParams, width: int,
+                   height: int, n_cap: Optional[int] = None,
+                   notes: Optional[List[str]] = None) -> np.ndarray:
+    """Support grid -> the final (N, 3) int32 support points that both
+    images triangulate: the grid's points, thinned UNIFORMLY where there
+    are more than n_cap (the engine's pad size) less the corner slots, so
+    that triangle indices stay consistent with the shipped point list,
+    then the corner points.  notes: a list that takes the thinning's
+    warning in place of the warnings module."""
     pts = support_points_from_grid(np.asarray(d_can), p.step)
     margin = 6 if p.add_corners else 0   # corner slots only when appended
     if n_cap is not None and len(pts) > n_cap - margin:
@@ -136,14 +135,32 @@ def host_geometry(d_can: np.ndarray, p: ElasParams, width: int, height: int,
         pts = pts[np.arange(keep) * len(pts) // keep]
     if p.add_corners:
         pts = add_corner_support_points(pts, width, height)
-    out = {"pts": pts}
+    return pts
+
+
+def _tri_ids(pts: np.ndarray, right: bool, width: int, height: int,
+             rasterize=rasterize) -> Tuple[np.ndarray, np.ndarray]:
+    """One image's Delaunay triangles (T, 3) int32 and its (H, W) int32
+    triangle-id map."""
+    with P.span("svtt.host_mid.delaunay"):
+        tris = triangulate(pts, right)
+    with P.span("svtt.host_mid.raster"):
+        return tris, rasterize(pts, tris, right, width, height)
+
+
+def host_geometry(d_can: np.ndarray, p: ElasParams, width: int, height: int,
+                  rasterize, n_cap: Optional[int] = None,
+                  notes: Optional[List[str]] = None):
+    """Host middle stage: support grid -> support points, triangles and
+    triangle-id maps (the JAX host_geometry without its f64 oracle planes,
+    which the engine never reads).  n_cap and notes: support_points'.
+
+    Returns dict with pts (N, 3) int32, tris_l/r (T, 3) int32 and
+    tri_id_l/r (H, W) int32."""
+    out = {"pts": support_points(d_can, p, width, height, n_cap, notes)}
     for right, tag in ((False, "l"), (True, "r")):
-        with P.span("svtt.host_mid.delaunay"):
-            tris = triangulate(pts, right)
-        out["tris_" + tag] = tris
-        with P.span("svtt.host_mid.raster"):
-            out["tri_id_" + tag] = rasterize(pts, tris, right, width,
-                                             height)
+        out["tris_" + tag], out["tri_id_" + tag] = _tri_ids(
+            out["pts"], right, width, height, rasterize)
     return out
 
 
@@ -255,41 +272,73 @@ def tri_span_code(tri_id: np.ndarray, t_max: int, s_max: int,
     return out
 
 
+def host_side(pts: np.ndarray, right: bool, params: ElasParams, width: int,
+              height: int, t_max: int, s_max: int,
+              notes: Optional[List[str]] = None
+              ) -> Tuple[np.ndarray, np.ndarray, int]:
+    """One image's half of the host middle on the final support points
+    (support_points): Delaunay, the triangle-id raster and its span code
+    on the output lattice.  -> (tris (T, 3) int32, span code (Ho, s_max,
+    3) uint8, runs: the code's longest row, 0 while recording is off).
+    notes, where given, takes the span overflow's warning."""
+    tris, tri_id = _tri_ids(pts, right, width, height)
+    step = 2 if params.subsampling else 1
+    with P.span("svtt.host_mid.span_code") as sc:
+        code = tri_span_code(tri_id, t_max, s_max,
+                             params.out_shape(width, height), step, notes)
+    return tris, code, sc.counts.get("runs", 0)
+
+
 def host_mid(d_can: np.ndarray, params: ElasParams, width: int, height: int,
              n_max: int, t_max: int, s_max: int, host_filters: bool = True,
-             notes: Optional[List[str]] = None) -> Dict[str, np.ndarray]:
+             notes: Optional[List[str]] = None,
+             side=None) -> Dict[str, np.ndarray]:
     """Support grid -> padded geometry arrays (fixed shapes): pts (n_max, 3)
     int16, tris_l/r (t_max, 3) int16 and the triangle-id maps on the output
     lattice as span codes tri_l/r (Ho, s_max, 3) uint8.  host_filters=True
     applies the reference's sequential support filters first; notes, where
-    given, takes the warnings."""
+    given, takes the warnings.
+
+    side: a hostlib.side.SideWorker, or None.  Where the worker takes the
+    right image's half (SideWorker.submit), it computes it while this call
+    computes the left's; else, and where the worker fails, the right half
+    runs here after the left.  The arrays and the warnings, in their
+    order, are the same either way."""
     with P.span("svtt.host_mid", thinned=0) as hm:
         d_can = np.asarray(d_can)
         if host_filters:
             with P.span("svtt.host_mid.filters"):
                 d_can = filter_support_sequential(d_can, params)
-        g = host_geometry(d_can, params, width, height, rasterize=rasterize,
-                          n_cap=n_max, notes=notes)
+        points = support_points(d_can, params, width, height, n_max, notes)
+        args = (params, width, height, t_max, s_max)
+        handed = side is not None and side.submit(points, P.recording())
+        try:
+            left = host_side(points, False, *args, notes)
+        finally:
+            if handed:
+                with P.span("svtt.host_mid.join"):
+                    right = side.result()
+        took = int(handed and right is not None)
+        if took:
+            *right, msgs, spans = right
+            P.ingest(spans, P.current_frame())
+            for msg in msgs:
+                _warn(msg, notes)
+        else:
+            right = host_side(points, True, *args, notes)
         pts = np.full((n_max, 3), -1, np.int16)
-        n = min(len(g["pts"]), n_max)
-        pts[:n] = g["pts"][:n]
+        n = min(len(points), n_max)
+        pts[:n] = points[:n]
         out = {"pts": pts}
-        # matching samples only the output lattice: code spans there
-        lattice = params.out_shape(width, height)
-        step = 2 if params.subsampling else 1
-        native = int(get_lib() is not None)
         tris, runs = {}, 0
-        for tag in ("l", "r"):
+        for tag, (tri, code, r) in zip("lr", (left, right)):
             tr = np.full((t_max, 3), -1, np.int16)
-            tris[tag] = t = min(len(g["tris_" + tag]), t_max)
-            tr[:t] = g["tris_" + tag][:t]
-            out["tris_" + tag] = tr
-            with P.span("svtt.host_mid.span_code") as sc:
-                out["tri_" + tag] = tri_span_code(
-                    g["tri_id_" + tag], t_max, s_max, lattice, step, notes)
-            runs = max(runs, sc.counts.get("runs", 0))
+            tris[tag] = t = min(len(tri), t_max)
+            tr[:t] = tri[:t]
+            out["tris_" + tag], out["tri_" + tag] = tr, code
+            runs = max(runs, r)
         hm.add(support=n, tris_l=tris["l"], tris_r=tris["r"],
-               runs_max=runs, native=native)
+               runs_max=runs, native=int(get_lib() is not None), side=took)
     return out
 
 

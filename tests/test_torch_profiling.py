@@ -185,9 +185,11 @@ def test_device_trace_names_the_four_kernels(cuda, tmp_path):
 FRAME_CHILDREN = ["svtt.gray", "svtt.stage_a", "svtt.fetch_support",
                   "svtt.host_mid", "svtt.upload_geometry", "svtt.stage_b",
                   "svtt.reproject", "svtt.fetch_dmap", "svtt.fetch_cloud"]
+# of svtt.host_mid in process: the filters, then the left image's half and
+# the right's (hostlib.geometry.host_side)
 HOST_CHILDREN = (["svtt.host_mid.filters"]
-                 + ["svtt.host_mid.delaunay", "svtt.host_mid.raster"] * 2
-                 + ["svtt.host_mid.span_code"] * 2)
+                 + ["svtt.host_mid.delaunay", "svtt.host_mid.raster",
+                    "svtt.host_mid.span_code"] * 2)
 
 
 @pytest.fixture
